@@ -1,0 +1,109 @@
+"""DLRM (Naumov et al., arXiv:1906.00091) on torch tensors, single device.
+
+dense features -> bottom MLP -> d-dim vector; each sparse field -> SLS
+(embedding-bag sum) -> d-dim vector; pairwise-dot interaction over the
+(n_tables + 1) vectors; concat [bottom_out, interactions] -> top MLP -> CTR
+logit. Port of ``repro.models.dlrm`` (``init``, ``interact``, ``forward``,
+``add_remap``; the mesh branches wait).
+
+Unlike the reference forward, which takes bags with ``jnp.take`` and the
+interaction with an einsum, this forward routes both through the port's
+kernels: each table's bag goes through the two-tier SLS over the hot prefix
+and the cold tail of the stored table, and the interaction through the Gram
+kernel. The function is the same; the sums differ only in their order.
+``plain=True`` routes them through the kernels' plain versions instead (the
+oracle on the card). The MLPs stay ``torch.matmul``, as the reference
+leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs import DLRMConfig
+from repro_torch.device import resolve_device
+from repro_torch.embedding.layout import lookup
+from repro_torch.kernels import ops, ref
+from repro_torch.models.common import mlp, mlp_init, uniform_init
+
+
+def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
+         device: str | torch.device = "cuda") -> dict:
+    """Random parameters with the reference's distributions, drawn on
+    ``device`` from a generator seeded with ``seed`` (the draws differ from
+    JAX's; transplant reference weights with ``repro_torch.weights``)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    tables = [uniform_init(gen, (n, cfg.embed_dim), 1.0 / math.sqrt(n), dtype)
+              for n in cfg.n_rows]
+    bot_sizes = (cfg.n_dense,) + tuple(cfg.bot_mlp)
+    if bot_sizes[-1] != cfg.embed_dim:
+        bot_sizes = bot_sizes + (cfg.embed_dim,)
+    top_sizes = (cfg.top_in,) + tuple(cfg.top_mlp) + (1,)
+    return {
+        "tables": tables,
+        "bot": mlp_init(gen, bot_sizes, dtype),
+        "top": mlp_init(gen, top_sizes, dtype),
+    }
+
+
+def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
+             plain: bool = False) -> torch.Tensor:
+    """bottom_out (B,D), bags (B,T,D) -> top-MLP input."""
+    z = torch.cat([bottom_out[:, None, :], bags], dim=1)          # (B,T+1,D)
+    if interaction == "dot":
+        flat = (ops.upper_triangle(ref.dot_interaction_ref(z)) if plain
+                else ops.dot_interaction(z))                      # (B, nC2)
+        return torch.cat([bottom_out, flat], dim=1)
+    return z.reshape(z.shape[0], -1)
+
+
+def _bag(params, indices: torch.Tensor, t: int,
+         plain: bool = False) -> torch.Tensor:
+    """One table's SLS over its stored table, split at its hot size.
+
+    With remap enabled (``rank_of`` present) logical ids are first
+    translated to ranks on the device (the paper's hash table). A table
+    without a remap is served as ``RemapSpec.identity`` would: hot size 1.
+    """
+    stored = params["tables"][t]
+    if "rank_of" in params:
+        idx = lookup(params["rank_of"][t], indices)
+        hot = params["hot_sizes"][t]
+    else:
+        idx = indices.to(torch.int32).contiguous()
+        hot = 1
+    sls = ref.recflash_sls_ref if plain else ops.recflash_sls
+    return sls(stored[:hot], stored[hot:], idx)
+
+
+def forward(params, batch, cfg: DLRMConfig, plain: bool = False
+            ) -> torch.Tensor:
+    """batch: dense (B,n_dense) f32, indices (B,n_tables,lookups) int32."""
+    x = mlp(params["bot"], batch["dense"])
+    bags = torch.stack([_bag(params, batch["indices"][:, t, :], t, plain)
+                        for t in range(cfg.n_tables)], dim=1)
+    feat = interact(x, bags, cfg.interaction, plain)
+    return mlp(params["top"], feat)[:, 0]          # logits (B,)
+
+
+def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
+    """Attach per-table logical->rank hash tables (RecFlash layout) and the
+    hot size that splits each stored table into its two tiers.
+
+    ``rank_ofs`` are (V,) arrays or tensors, kept as int32 on the tables'
+    device; ``hot_sizes`` defaults to 1 per table.
+    """
+    device = params["tables"][0].device
+    rank_of = []
+    for r in rank_ofs:
+        r = torch.as_tensor(r)
+        if r.numel() and int(r.max()) >= 2**31:
+            raise ValueError("rank_of does not fit in int32")
+        rank_of.append(r.to(device=device, dtype=torch.int32))
+    hot = [1] * len(rank_of) if hot_sizes is None else list(map(int,
+                                                                hot_sizes))
+    if len(hot) != len(rank_of):
+        raise ValueError("need one hot size per rank_of table")
+    return {**params, "rank_of": rank_of, "hot_sizes": hot}
