@@ -1,48 +1,90 @@
-// Two-tier SLS bag sum (RecFlash) for Hopper, sm_90a.
+// Two-tier SLS bag sum (RecFlash) for Hopper, sm_90a: every table of a
+// batch in one launch, with the logical-id -> rank translation fused.
 //
 // Replaces: src/repro/kernels/recflash_sls.py, recflash_sls (kernel body
 // _sls_kernel), the TPU kernel that keeps the hot prefix of the rank-ordered
 // table resident in VMEM and fetches each cold row with a double-buffered
-// row DMA.
+// row DMA; and the jnp.take(rank_of) before it in the reference forward
+// (src/repro/models/dlrm.py:124), the paper's hash-table lookup.
 //
-// Computes: out[b, :] = sum_l row(indices[b, l]) in f32, where a rank r below
-// hot_rows reads hot[r] and any other rank reads cold[r - hot_rows].
+// Computes, for every bag (b, t) of a batch:
+//   out[b, t, :] = sum_l row_t(rank_t(indices[b, t, l]))   in f32,
+// where rank_t(id) = rank_of_t[id], or id itself for a table given ranks,
+// and a rank r below hot_rows_t reads hot_t[r], any other cold_t[r -
+// hot_rows_t]. One table without rank_of is the per-table entry (the TPU
+// kernel's own contract).
 //
 // What bounds it on this card: bytes. A bag reads L rows of D elements and
 // does L*D adds, far below the card's operations-per-byte line. At the
-// dlrm-rm2 serving shape (B=64, L=80, D=64, f32) one launch reads at most
-// 1.31 MB of rows, about 0.4 us at 3.35 TB/s, so at batch 64 the launch
-// itself, not the memory, sets the time.
+// dlrm-rm2 serving shape (B=64, 26 tables, L=80, D=64, f32) a batch touches
+// about 5 MB of unique rows, indices, rank_of entries and output, under 2 us
+// at 3.35 TB/s. What held the first design back was latency: 8 blocks of
+// one table per launch, and ten dependent round trips per thread (index,
+// then row, in 5 rounds of 16 lookups), times 26 launches per batch.
 //
 // Design:
-// - A group of G threads (a power of two, at most 32) serves one bag; each
-//   thread owns 16-byte vectors of the row (4 f32 or 8 bf16 values), or
-//   single elements where D or the pointers do not allow 16-byte loads.
-//   A block serves block_b bags, the batch tile of the TPU kernel's grid.
-// - Each thread keeps an f32 accumulator in registers and adds the bag's
-//   rows in lookup order, as the TPU kernel's fori_loop does, so the sum
-//   is bit-equal to a sequential f32 sum. It issues the loads of kAhead
-//   lookups before it adds any of them, so that many row reads are in
-//   flight at once; this takes the place of the TPU kernel's DMA double
-//   buffer.
-// - bf16 rows are widened with __bfloat162float.
-// - The hot tier is not staged in shared memory. A dlrm-rm2 prefix
-//   (2000 x 64 x 4 B = 500 KB) exceeds the 227 KB a block can have, while
-//   the 26 prefixes together (12.7 MB) fit in the 50 MB L2, which serves
-//   the hot rows after their first touch. This deviates from the VMEM-
-//   resident hot tier of DESIGN.md §2.2. Staging the prefix, cp.async or
-//   TMA cold fetches and one launch for all tables are later work.
-// - A rank outside [0, rows) is clamped into it, as XLA's gather clamps,
-//   so that a bad index cannot read outside the table.
+// - One launch for all tables. A table's pointers, hot size, row count and
+//   rank_of live in a small device array of TableDesc, built once when the
+//   tables are described (kernels/recflash_sls.py::describe, called by
+//   dlrm.add_remap); indices (B, n_tables, L) are read with their strides.
+// - A group of G threads (a power of two, at most 32; 16 for D=64 f32)
+//   serves one bag, and a block of 128 threads serves 128/G bags, so a
+//   dlrm-rm2 batch (1664 bags) is 208 blocks over the 132 SMs.
+// - Three dependent round trips per bag: the group reads the bag's L ids
+//   (8 per thread per round, all issued before any is used), then their
+//   rank_of entries, and writes the clamped ranks to shared memory; after
+//   one barrier every row address is known.
+// - Rows travel by 16-byte cp.async copies into a per-thread ring of 32
+//   slots in shared memory (Hopper's form of the TPU kernel's row DMA
+//   double buffer): a thread keeps up to 32 row reads in flight, waits for
+//   the oldest, adds it and refills its slot. Each thread copies and reads
+//   only its own slots, so the ring needs no barrier. (Consuming 4 lookups
+//   per wait, to expose one shared-memory latency per 4, measured the same
+//   on the card; see PERF.md.)
+// - Each thread owns 16-byte vectors of the row (4 f32 or 8 bf16 values)
+//   and adds the bag's rows in lookup order into f32 registers, as the TPU
+//   kernel's fori_loop does, so the sum is bit-equal to a sequential f32
+//   sum. bf16 rows are widened with __bfloat162float.
+// - Where D or a table pointer does not allow 16-byte copies (D=18, say),
+//   each thread loads single elements straight into registers, 16 lookups
+//   at a time, from the ranks already in shared memory.
+// - The hot tier is served from L2, not staged in shared memory: a dlrm-rm2
+//   prefix (2000 x 64 x 4 B = 500 KB) exceeds the 227 KB a block can have,
+//   while the 26 prefixes (12.7 MB) fit the 50 MB L2, which holds the hot
+//   rows after their first touch. This deviates from the VMEM-resident hot
+//   tier of DESIGN.md §2.2.
+// - An id outside [0, n_ids) and a rank outside [0, rows) are clamped into
+//   range, as XLA's gather clamps, so that a bad index cannot read outside
+//   a table.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// One table of a group; the layout of one row of the (n_tables, 6) int64
+// descriptor tensor of kernels/recflash_sls.py::describe.
+struct TableDesc {
+  const void* hot;
+  const void* cold;
+  const int32_t* rank_of;  // nullptr: the indices are ranks
+  long long hot_rows;
+  long long rows;
+  long long n_ids;         // entries of rank_of
+};
+static_assert(sizeof(TableDesc) == 48, "TableDesc must be six 8-byte words");
+
 namespace {
 
-constexpr int kAhead = 16;  // lookups whose rows are loaded before adding
+constexpr int kThreads = 128;        // threads per block
+constexpr int kStages = 32;          // ring slots per thread (vector path)
+constexpr int kAhead = 16;           // lookups per register batch (scalar)
+constexpr int kIdx = 8;              // lookups a thread translates per round
+constexpr int kMaxSmem = 232448;     // 227 KB, the most a block can have
+
+__device__ __forceinline__ long long clamp_to(long long x, long long n) {
+  return x < 0 ? 0 : (x >= n ? n - 1 : x);
+}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -60,117 +102,204 @@ __device__ __forceinline__ void add_word(uint32_t w, float* acc,
   acc[1] += widen(__ushort_as_bfloat16(static_cast<unsigned short>(w >> 16)));
 }
 
-// The unit one thread loads per lookup: one element, or one 16-byte vector.
-template <typename T, bool kVec>
-struct Unit;
-
+// Adds one 16-byte vector of a row (16 / sizeof(T) elements) to acc.
 template <typename T>
-struct Unit<T, false> {
-  static constexpr int kElems = 1;
-  T x;
-  __device__ __forceinline__ void load(const T* p) { x = *p; }
-  __device__ __forceinline__ void add_to(float* acc) const {
-    acc[0] += widen(x);
-  }
-};
+__device__ __forceinline__ void add_vec(const uint4& v, float* acc) {
+  constexpr int kPerWord = 4 / sizeof(T);
+  add_word(v.x, acc + 0 * kPerWord, T());
+  add_word(v.y, acc + 1 * kPerWord, T());
+  add_word(v.z, acc + 2 * kPerWord, T());
+  add_word(v.w, acc + 3 * kPerWord, T());
+}
 
-template <typename T>
-struct Unit<T, true> {
-  static constexpr int kElems = 16 / sizeof(T);
-  static constexpr int kPerWord = 4 / sizeof(T);
-  uint4 x;
-  __device__ __forceinline__ void load(const T* p) {
-    x = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ void add_to(float* acc) const {
-    add_word(x.x, acc + 0 * kPerWord, T());
-    add_word(x.y, acc + 1 * kPerWord, T());
-    add_word(x.z, acc + 2 * kPerWord, T());
-    add_word(x.w, acc + 3 * kPerWord, T());
-  }
-};
-
-template <typename T, bool kVec>
-__global__ void sls_kernel(const T* __restrict__ hot,
-                           const T* __restrict__ cold,
-                           const int32_t* __restrict__ indices,
-                           float* __restrict__ out, int64_t hot_rows,
-                           int64_t rows, int dim, int batch, int lookups,
-                           int group) {
-  using U = Unit<T, kVec>;
-  constexpr int kE = U::kElems;
-  const int bags_per_block = blockDim.x / group;
-  const int bag = blockIdx.x * bags_per_block + threadIdx.x / group;
-  const int lane = threadIdx.x % group;
-  if (bag >= batch) return;
-  const int32_t* idx = indices + static_cast<int64_t>(bag) * lookups;
-  const int units = dim / kE;
-  for (int c = lane; c < units; c += group) {
-    const int64_t col = static_cast<int64_t>(c) * kE;
-    float acc[kE];
-#pragma unroll
-    for (int e = 0; e < kE; ++e) acc[e] = 0.0f;
-    for (int l0 = 0; l0 < lookups; l0 += kAhead) {
-      U r[kAhead];
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        if (l0 + u < lookups) {
-          int64_t row = idx[l0 + u];
-          row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);
-          const T* src = row < hot_rows ? hot + row * dim
-                                        : cold + (row - hot_rows) * dim;
-          r[u].load(src + col);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        if (l0 + u < lookups) r[u].add_to(acc);
-      }
-    }
-    float* dst = out + static_cast<int64_t>(bag) * dim + col;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) dst[e] = acc[e];
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T>
-void launch(const void* hot, const void* cold, const void* indices, void* out,
-            int64_t hot_rows, int64_t rows, int dim, int batch, int lookups,
-            int block_b, int vec, int group, cudaStream_t stream) {
-  const dim3 grid((batch + block_b - 1) / block_b);
-  const dim3 block(block_b * group);
-  const T* h = static_cast<const T*>(hot);
-  const T* c = static_cast<const T*>(cold);
-  const int32_t* i = static_cast<const int32_t*>(indices);
-  float* o = static_cast<float*>(out);
-  if (vec) {
-    sls_kernel<T, true><<<grid, block, 0, stream>>>(
-        h, c, i, o, hot_rows, rows, dim, batch, lookups, group);
-  } else {
-    sls_kernel<T, false><<<grid, block, 0, stream>>>(
-        h, c, i, o, hot_rows, rows, dim, batch, lookups, group);
+__device__ __forceinline__ const T* row_of(const TableDesc& d, int32_t rank,
+                                           int dim) {
+  return rank < d.hot_rows
+             ? static_cast<const T*>(d.hot) + static_cast<long long>(rank) * dim
+             : static_cast<const T*>(d.cold) + (rank - d.hot_rows) * dim;
+}
+
+// descs: the group's descriptors, or nullptr for the one table `one`.
+// Shared memory: the ranks of the block's bags (lookups int32 each, padded
+// to 16 bytes), then, on the vector path, the ring: slot s of thread lane
+// of bag g is uint4 number (g * slots + s) * group + lane.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    sls_kernel(const TableDesc* __restrict__ descs, TableDesc one,
+               const int32_t* __restrict__ indices, long long s_b,
+               long long s_t, long long s_l, float* __restrict__ out,
+               int n_bags, int n_tables, int lookups, int dim, int group,
+               int slots, int ranks_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int per_block = blockDim.x / group;
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x % group;
+  const int bag = blockIdx.x * per_block + g;
+  const bool live = bag < n_bags;
+  const int b = bag / n_tables;
+  const int t = bag % n_tables;
+  int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * lookups;
+  TableDesc d = one;
+  if (live) {
+    if (descs != nullptr) d = descs[t];
+    const int32_t* ids = indices + b * s_b + t * s_t;
+    for (int l0 = lane; l0 < lookups; l0 += kIdx * group) {
+      long long r[kIdx];
+#pragma unroll
+      for (int u = 0; u < kIdx; ++u) {
+        const int l = l0 + u * group;
+        r[u] = l < lookups ? ids[l * s_l] : 0;
+      }
+      if (d.rank_of != nullptr) {
+#pragma unroll
+        for (int u = 0; u < kIdx; ++u) {
+          if (l0 + u * group < lookups) {
+            r[u] = d.rank_of[clamp_to(r[u], d.n_ids)];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kIdx; ++u) {
+        const int l = l0 + u * group;
+        if (l < lookups) ranks[l] = static_cast<int32_t>(clamp_to(r[u], d.rows));
+      }
+    }
   }
+  __syncthreads();
+  if (!live) return;
+  float* dst = out + static_cast<long long>(bag) * dim;
+  if constexpr (kVec) {
+    constexpr int kE = 16 / sizeof(T);
+    uint4* ring = reinterpret_cast<uint4*>(smem + ranks_bytes) +
+                  g * slots * group + lane;
+    for (int c = lane; c < dim / kE; c += group) {
+      const int col = c * kE;
+      float acc[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] = 0.0f;
+      // one commit group per lookup: group l holds lookup l's copy
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) {
+        if (s < lookups) cp_async16(ring + s * group, row_of<T>(d, ranks[s], dim) + col);
+        cp_async_commit();
+      }
+      for (int l = 0; l < lookups; ++l) {
+        cp_async_wait<kStages - 1>();      // lookup l's copy has landed
+        uint4* slot = ring + (l % kStages) * group;
+        add_vec<T>(*slot, acc);
+        const int next = l + kStages;
+        if (next < lookups) cp_async16(slot, row_of<T>(d, ranks[next], dim) + col);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int e = 0; e < kE; e += 4) {
+        *reinterpret_cast<float4*>(dst + col + e) =
+            make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      }
+    }
+  } else {
+    for (int c = lane; c < dim; c += group) {
+      float acc = 0.0f;
+      for (int l0 = 0; l0 < lookups; l0 += kAhead) {
+        T r[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          if (l0 + u < lookups) r[u] = row_of<T>(d, ranks[l0 + u], dim)[c];
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          if (l0 + u < lookups) acc += widen(r[u]);
+        }
+      }
+      dst[c] = acc;
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int launch(const TableDesc* descs, const TableDesc& one,
+           const int32_t* indices, long long s_b, long long s_t,
+           long long s_l, float* out, int batch, int n_tables, int lookups,
+           int dim, cudaStream_t stream) {
+  const int units = kVec ? dim / static_cast<int>(16 / sizeof(T)) : dim;
+  int group = 1;
+  while (group < units && group < 32) group <<= 1;
+  const int per_block = kThreads / group;
+  const int n_bags = batch * n_tables;
+  const int slots = lookups < kStages ? lookups : kStages;
+  const long long ranks_bytes =
+      (static_cast<long long>(per_block) * lookups * 4 + 15) / 16 * 16;
+  const long long smem =
+      ranks_bytes +
+      (kVec ? static_cast<long long>(per_block) * slots * group * 16 : 0);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_bags == 0) return 0;
+  // Above 48 KB a kernel needs this attribute, set once per device.
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !(attr_set >> dev & 1ull)) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sls_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set |= 1ull << dev;
+  }
+  const dim3 grid((n_bags + per_block - 1) / per_block);
+  sls_kernel<T, kVec><<<grid, per_block * group, smem, stream>>>(
+      descs, one, indices, s_b, s_t, s_l, out, n_bags, n_tables, lookups, dim,
+      group, slots, static_cast<int>(ranks_bytes));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 if dim and both table pointers
-// allow 16-byte loads. group: threads per bag. Returns cudaGetLastError().
-extern "C" int recflash_sls_launch(const void* hot, const void* cold,
-                                   const void* indices, void* out,
-                                   long long hot_rows, long long rows,
-                                   int dim, int batch, int lookups,
-                                   int block_b, int dtype, int vec, int group,
-                                   void* stream) {
+// descs: n_tables TableDesc on the card, or nullptr for one table given by
+// hot, cold, hot_rows and rows, whose indices are ranks. indices (batch,
+// n_tables, lookups) int32 with element strides s_b, s_t, s_l; out (batch,
+// n_tables, dim) f32, contiguous. dtype: 0 = float32, 1 = bfloat16. vec: 1
+// if dim and every table pointer allow 16-byte copies. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what the kernel does not
+// take (a bad dtype, more than 227 KB of shared memory).
+extern "C" int recflash_sls_launch(const void* descs, const void* hot,
+                                   const void* cold, long long hot_rows,
+                                   long long rows, const void* indices,
+                                   long long s_b, long long s_t,
+                                   long long s_l, void* out, int batch,
+                                   int n_tables, int lookups, int dim,
+                                   int dtype, int vec, void* stream) {
+  const TableDesc* ds = static_cast<const TableDesc*>(descs);
+  const TableDesc one{hot, cold, nullptr, hot_rows, rows, rows};
+  const int32_t* idx = static_cast<const int32_t*>(indices);
+  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(hot, cold, indices, out, hot_rows, rows, dim, batch,
-                  lookups, block_b, vec, group, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(hot, cold, indices, out, hot_rows, rows, dim, batch,
-                          lookups, block_b, vec, group, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return vec ? launch<float, true>(ds, one, idx, s_b, s_t, s_l, o, batch,
+                                     n_tables, lookups, dim, s)
+               : launch<float, false>(ds, one, idx, s_b, s_t, s_l, o, batch,
+                                      n_tables, lookups, dim, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return vec ? launch<__nv_bfloat16, true>(ds, one, idx, s_b, s_t, s_l, o,
+                                             batch, n_tables, lookups, dim, s)
+               : launch<__nv_bfloat16, false>(ds, one, idx, s_b, s_t, s_l, o,
+                                              batch, n_tables, lookups, dim,
+                                              s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,19 @@
-"""DLRM pairwise-dot interaction (kernel B2): the wrapper of
+"""DLRM pairwise-dot interaction (kernel B2): the wrappers of
 ``csrc/dot_interaction.cu``.
 
 Port of ``repro.kernels.dot_interaction.dot_interaction``, the Pallas TPU
-kernel computing batched Gram matrices on the MXU. The source's note says
-what bounds the CUDA kernel and how it is laid out.
+kernel computing batched Gram matrices on the MXU. One CUDA kernel serves
+two entries:
 
-On a CPU tensor the wrapper runs the plain version (``kernels.ref``). On a
-CUDA tensor it launches the kernel on the current stream or raises.
+- ``dot_interaction_fused``: the top-MLP input of ``dlrm.interact``
+  (``bottom_out`` followed by the strict upper triangle of the Gram of
+  ``[bottom_out; bags]``), written by the kernel in one launch;
+- ``dot_interaction``: the full (B, T, T) Gram matrices, the TPU kernel's
+  own contract.
+
+The source's note says what bounds the kernel and how it is laid out. On a
+CPU tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA
+tensor it launches the kernel on the current stream or raises.
 """
 
 from __future__ import annotations
@@ -16,10 +23,32 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import dot_interaction_ref
+from repro_torch.kernels.ref import dot_interaction_fused_ref, dot_interaction_ref
 
-SMEM_LIMIT = 48 * 1024      # static launch limit for dynamic shared memory
-_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# first, s0, rest, s1, out, batch, t, d, dtype, fused, aligned, stream
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _launch(first: torch.Tensor, s0: int, rest_ptr: int, s1: int,
+            out: torch.Tensor, t: int, d: int, fused: bool) -> None:
+    """Launch on the current stream: row 0 of sample b at ``first`` + b *
+    s0, its rows 1..t-1 at ``rest_ptr`` + b * s1 (element strides). The
+    launcher refuses a sample over 48 KB of shared memory (CUDA error 1)."""
+    esize = first.element_size()
+    aligned = (first.dtype == torch.float32 and first.data_ptr() % 16 == 0
+               and rest_ptr % 16 == 0 and (s0 * esize) % 16 == 0
+               and (s1 * esize) % 16 == 0)
+    fn = _build.function("dot_interaction", "dot_interaction_launch",
+                         _ARGTYPES)
+    with torch.cuda.device(out.device):
+        err = fn(first.data_ptr(), s0, rest_ptr, s1, out.data_ptr(),
+                 out.shape[0], t, d, _build.DTYPE_CODES[first.dtype],
+                 int(fused), int(aligned),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"dot_interaction kernel launch failed: CUDA "
+                           f"error {err}")
 
 
 def dot_interaction(z: torch.Tensor, block_b: int = 64) -> torch.Tensor:
@@ -42,21 +71,47 @@ def dot_interaction(z: torch.Tensor, block_b: int = 64) -> torch.Tensor:
         raise ValueError(f"unsupported device {z.device}")
     if not z.is_contiguous():
         raise ValueError("z must be contiguous")
-    if t * (d + 1) * 4 > SMEM_LIMIT:
-        raise ValueError(f"a ({t}, {d}) sample exceeds the kernel's "
-                         f"{SMEM_LIMIT} B of shared memory")
     out = torch.empty((b, t, t), dtype=torch.float32, device=z.device)
-    launch = _build.function("dot_interaction", "dot_interaction_launch",
-                             _ARGTYPES)
-    with torch.cuda.device(z.device):
-        err = launch(z.data_ptr(), out.data_ptr(), b, t, d,
-                     _build.DTYPE_CODES[z.dtype],
-                     torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"dot_interaction kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch(z, t * d, z.data_ptr() + d * z.element_size(), t * d, out, t, d,
+            fused=False)
     dot_interaction.launches += 1
     return out
 
 
-dot_interaction.launches = 0   # kernel launches since the last reset
+def dot_interaction_fused(bottom_out: torch.Tensor,
+                          bags: torch.Tensor) -> torch.Tensor:
+    """bottom_out (B, D), bags (B, T-1, D) -> (B, D + T(T-1)/2) float32:
+    ``bottom_out``, then the strict upper triangle of the Gram of z =
+    [bottom_out; bags] in ``numpy.triu_indices(T, k=1)`` order, which is
+    what ``dlrm.interact`` returns for the dot interaction."""
+    if bottom_out.dim() != 2 or bags.dim() != 3 or \
+            bags.shape[0] != bottom_out.shape[0] or \
+            bags.shape[2] != bottom_out.shape[1]:
+        raise ValueError(f"bottom_out {tuple(bottom_out.shape)} and bags "
+                         f"{tuple(bags.shape)} must be (B, D) and (B, T-1, D)")
+    if bottom_out.dtype not in _build.DTYPE_CODES or \
+            bags.dtype != bottom_out.dtype:
+        raise TypeError(f"bottom_out and bags must both be float32 or "
+                        f"bfloat16, got {bottom_out.dtype} and {bags.dtype}")
+    if bags.device != bottom_out.device:
+        raise ValueError("bottom_out and bags must be on one device")
+    b, d = bottom_out.shape
+    t = bags.shape[1] + 1
+    if bottom_out.device.type == "cpu":
+        return dot_interaction_fused_ref(bottom_out, bags)
+    if bottom_out.device.type != "cuda":
+        raise ValueError(f"unsupported device {bottom_out.device}")
+    if bottom_out.stride(1) != 1 or bags.stride(2) != 1 or \
+            (t > 2 and bags.stride(1) != d):
+        raise ValueError("each sample's rows of bottom_out and bags must be "
+                         "contiguous")
+    out = torch.empty((b, d + t * (t - 1) // 2), dtype=torch.float32,
+                      device=bottom_out.device)
+    _launch(bottom_out, bottom_out.stride(0), bags.data_ptr(), bags.stride(0),
+            out, t, d, fused=True)
+    dot_interaction_fused.launches += 1
+    return out
+
+
+dot_interaction.launches = 0         # kernel launches since the last reset
+dot_interaction_fused.launches = 0   # kernel launches since the last reset

@@ -1,4 +1,5 @@
-"""Public kernel ops with the reference's signatures (``repro.kernels.ops``).
+"""Public kernel ops with the reference's signatures (``repro.kernels.ops``),
+and the grouped and fused entries the port's forward takes.
 
 On a CUDA tensor each op launches its hand-written kernel; on a CPU tensor
 it runs the kernel's plain version. There is no fallback between the two.
@@ -6,11 +7,13 @@ it runs the kernel's plain version. There is no fallback between the two.
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
+from repro_torch.kernels.dot_interaction import (
+    dot_interaction_fused as _fused_kernel)
 from repro_torch.kernels.recflash_sls import recflash_sls as _sls_kernel
+from repro_torch.kernels.recflash_sls import (
+    recflash_sls_grouped as _grouped_kernel)
 
 
 def recflash_sls(hot, cold, indices, block_b: int = 8):
@@ -19,19 +22,29 @@ def recflash_sls(hot, cold, indices, block_b: int = 8):
     return _sls_kernel(hot, cold, indices, block_b=block_b)
 
 
+def recflash_sls_grouped(tables, hot_sizes, indices, rank_of=None,
+                         desc=None):
+    """Two-tier SLS of all tables in one launch: stored tables split at
+    ``hot_sizes``, indices (B, n_tables, L) int32 logical ids translated by
+    ``rank_of`` (or ranks) -> (B, n_tables, D) float32 bag sums."""
+    return _grouped_kernel(tables, hot_sizes, indices, rank_of, desc)
+
+
 def dot_interaction(z, block_b: int = 64):
     """DLRM interaction: z (B,T,D) -> (B, T*(T-1)/2) upper-triangle dots."""
     return upper_triangle(_dot_kernel(z, block_b=block_b))
 
 
-def upper_triangle(gram: torch.Tensor) -> torch.Tensor:
-    """(B, T, T) -> (B, T*(T-1)/2): the strict upper triangle in row-major
-    pair order (numpy's ``triu_indices(t, k=1)``)."""
-    t = gram.shape[1]
-    iu, ju = torch.triu_indices(t, t, 1, device=gram.device)
-    return gram[:, iu, ju]
+def dot_interaction_fused(bottom_out, bags):
+    """DLRM top-MLP input: bottom_out (B,D), bags (B,T-1,D) ->
+    (B, D + T*(T-1)/2), ``bottom_out`` then the upper-triangle dots."""
+    return _fused_kernel(bottom_out, bags)
 
+
+upper_triangle = _ref.upper_triangle
 
 # plain versions re-exported for chip_smoke.py and tests
 sls_ref = _ref.recflash_sls_ref
+sls_grouped_ref = _ref.recflash_sls_grouped_ref
 dot_ref = _ref.dot_interaction_ref
+fused_ref = _ref.dot_interaction_fused_ref

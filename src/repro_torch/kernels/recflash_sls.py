@@ -1,40 +1,138 @@
-"""Two-tier SLS (kernel B1): the wrapper of ``csrc/recflash_sls.cu``.
+"""Two-tier SLS (kernel B1): the wrappers of ``csrc/recflash_sls.cu``.
 
 Port of ``repro.kernels.recflash_sls.recflash_sls``, the Pallas TPU kernel
-with a VMEM-resident hot prefix and row DMAs for cold hits. The source's
-note says what bounds the CUDA kernel and how it serves the hot tier (from
-L2, not shared memory, at the dlrm-rm2 prefix size).
+with a VMEM-resident hot prefix and row DMAs for cold hits. One CUDA kernel
+serves two entries:
 
-On a CPU tensor the wrapper runs the plain version (``kernels.ref``). On a
-CUDA tensor it launches the kernel on the current stream or raises.
+- ``recflash_sls_grouped``: every table of a batch in one launch, logical
+  ids translated through each table's ``rank_of`` inside the kernel. The
+  tables are named by a small device array of descriptors (``describe``),
+  built once (``dlrm.add_remap``) and checked against the tables on every
+  call.
+- ``recflash_sls``: one table given as its two tiers and ranks, the TPU
+  kernel's own contract.
+
+The source's note says what bounds the kernel and how it serves the hot
+tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
+tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA tensor
+it launches the kernel on the current stream or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import recflash_sls_ref
+from repro_torch.kernels.ref import recflash_sls_grouped_ref, recflash_sls_ref
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# descs, hot, cold, hot_rows, rows, indices, s_b, s_t, s_l, out, batch,
+# n_tables, lookups, dim, dtype, vec, stream
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def threads_per_bag(dim: int, vec_elems: int) -> int:
-    """Threads serving one bag: one per load unit of the row, rounded up to
-    a power of two, at most a warp."""
-    units = -(-dim // vec_elems)
-    return min(32, 1 << (units - 1).bit_length())
+@dataclasses.dataclass(frozen=True)
+class TableDescs:
+    """The grouped kernel's view of a group of stored tables.
+
+    ``tensor`` holds, per table, ``(hot ptr, cold ptr, rank_of ptr or 0,
+    hot rows, rows, rank_of entries)``: an (n_tables, 6) int64 tensor on
+    the tables' device, the kernel's ``TableDesc`` array. ``key`` names the
+    tensors it was built from (``_key``); ``vec`` says whether every tier
+    allows 16-byte copies.
+    """
+
+    tensor: torch.Tensor
+    key: tuple
+    vec: bool
+
+
+def _key(tables, hot_sizes, rank_of) -> tuple:
+    """What a set of descriptors names: the tables' and rank_of tensors'
+    pointers and shapes, and the hot sizes. Checked on every call, in
+    place of building the descriptors anew."""
+    return (tuple(t.data_ptr() for t in tables),
+            tuple(t.shape for t in tables), tuple(hot_sizes),
+            None if rank_of is None else tuple((r.data_ptr(), r.shape)
+                                               for r in rank_of))
+
+
+def describe(tables, hot_sizes, rank_of=None) -> TableDescs:
+    """Descriptors of stored ``tables`` split at ``hot_sizes``, with their
+    ``rank_of`` hash tables (or None: the indices are ranks)."""
+    n = len(tables)
+    if n < 1 or len(hot_sizes) != n or (rank_of is not None
+                                        and len(rank_of) != n):
+        raise ValueError(f"need one hot size and one rank_of (or none) per "
+                         f"table: {n} tables, {len(hot_sizes)} hot sizes")
+    first = tables[0]
+    if first.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"tables must be float32 or bfloat16, got "
+                        f"{first.dtype}")
+    rows = []
+    for t, (table, h) in enumerate(zip(tables, hot_sizes, strict=True)):
+        if (table.dim() != 2 or table.shape[1] != first.shape[1]
+                or table.dtype != first.dtype
+                or table.device != first.device):
+            raise ValueError(f"table {t} {tuple(table.shape)} {table.dtype} "
+                             f"on {table.device} differs from table 0 "
+                             f"{tuple(first.shape)} {first.dtype} on "
+                             f"{first.device}")
+        if not table.is_contiguous():
+            raise ValueError(f"table {t} must be contiguous")
+        v, h = table.shape[0], int(h)
+        if not 1 <= h <= v:
+            raise ValueError(f"table {t}: hot size {h} outside [1, {v}]")
+        ro_ptr, n_ids = 0, v
+        if rank_of is not None:
+            ro = rank_of[t]
+            if (ro.dim() != 1 or ro.dtype != torch.int32
+                    or ro.device != first.device or not ro.is_contiguous()):
+                raise TypeError(f"rank_of[{t}] must be a contiguous (V,) "
+                                f"int32 tensor on {first.device}")
+            ro_ptr, n_ids = ro.data_ptr(), ro.shape[0]
+        base = table.data_ptr()
+        rows.append((base, base + h * table.stride(0) * table.element_size(),
+                     ro_ptr, h, v, n_ids))
+    return TableDescs(torch.tensor(rows, dtype=torch.int64,
+                                   device=first.device),
+                      _key(tables, hot_sizes, rank_of),
+                      _vec_ok(first.shape[1], first.dtype,
+                              [p for r in rows for p in r[:2]]))
+
+
+def _launch(descs: int, one: tuple[int, int, int, int],
+            indices: torch.Tensor, out: torch.Tensor, dim: int,
+            dtype: torch.dtype, vec: bool) -> None:
+    """Launch on the current stream; ``indices`` is (B, n_tables, L)."""
+    b, n_t, n_lk = indices.shape
+    fn = _build.function("recflash_sls", "recflash_sls_launch", _ARGTYPES)
+    with torch.cuda.device(out.device):
+        err = fn(descs, *one, indices.data_ptr(), *indices.stride(),
+                 out.data_ptr(), b, n_t, n_lk, dim, _build.DTYPE_CODES[dtype],
+                 int(vec), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"recflash_sls kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _vec_ok(dim: int, dtype: torch.dtype, ptrs) -> bool:
+    """16-byte copies: D fills whole vectors and every tier is aligned."""
+    return dim % (16 // dtype.itemsize) == 0 and all(p % 16 == 0
+                                                     for p in ptrs)
 
 
 def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
                  indices: torch.Tensor, block_b: int = 8) -> torch.Tensor:
-    """Two-tier SLS. hot (H,D), cold (V-H,D), indices (B,L) -> (B,D) f32.
+    """Two-tier SLS of one table. hot (H,D), cold (V-H,D), indices (B,L)
+    int32 ranks into [hot; cold] -> (B,D) f32.
 
-    ``indices`` are int32 ranks into [hot; cold]. ``block_b`` bags share one
-    CUDA block (the batch tile of the TPU kernel's grid) and must divide B.
+    ``block_b`` is the TPU kernel's batch tile and must divide B; the CUDA
+    kernel serves 128 / (threads per bag) bags per block whatever it is.
     """
     if hot.dim() != 2 or cold.dim() != 2 or hot.shape[1] != cold.shape[1]:
         raise ValueError(f"hot {tuple(hot.shape)} and cold "
@@ -50,7 +148,7 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     if not hot.device == cold.device == indices.device:
         raise ValueError("hot, cold and indices must be on one device")
     h, d = hot.shape
-    b, n_lk = indices.shape
+    b = indices.shape[0]
     if block_b < 1 or b % block_b:
         raise ValueError(f"batch {b} must divide by block_b {block_b}")
     if hot.device.type == "cpu":
@@ -60,25 +158,53 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     if not (hot.is_contiguous() and cold.is_contiguous()
             and indices.is_contiguous()):
         raise ValueError("hot, cold and indices must be contiguous")
-    elems = 16 // hot.element_size()
-    vec = (d % elems == 0 and hot.data_ptr() % 16 == 0
-           and cold.data_ptr() % 16 == 0)
-    group = threads_per_bag(d, elems if vec else 1)
-    if block_b * group > 1024:
-        raise ValueError(f"block_b {block_b} x {group} threads per bag "
-                         "exceeds 1024 threads per block")
     out = torch.empty((b, d), dtype=torch.float32, device=hot.device)
-    launch = _build.function("recflash_sls", "recflash_sls_launch", _ARGTYPES)
-    with torch.cuda.device(hot.device):
-        err = launch(hot.data_ptr(), cold.data_ptr(), indices.data_ptr(),
-                     out.data_ptr(), h, h + cold.shape[0], d, b, n_lk,
-                     block_b, _build.DTYPE_CODES[hot.dtype], int(vec), group,
-                     torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"recflash_sls kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch(0, (hot.data_ptr(), cold.data_ptr(), h, h + cold.shape[0]),
+            indices[:, None, :], out, d, hot.dtype,
+            _vec_ok(d, hot.dtype, (hot.data_ptr(), cold.data_ptr())))
     recflash_sls.launches += 1
     return out
 
 
-recflash_sls.launches = 0   # kernel launches since the last reset
+def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
+                         rank_of=None,
+                         desc: TableDescs | None = None) -> torch.Tensor:
+    """Two-tier SLS of every table of a batch in one launch.
+
+    ``tables`` are the stored (rank-ordered) (V_t, D) tables, each split at
+    its ``hot_sizes`` entry into the hot and cold tiers; ``indices`` (B,
+    n_tables, L) int32 logical ids, read with their strides, translated
+    through ``rank_of[t]`` inside the kernel (ranks when ``rank_of`` is
+    None). ``desc`` are the tables' descriptors from ``describe``; they are
+    checked against the arguments (pointers, shapes, hot sizes), and built
+    for this call when None.
+    Returns (B, n_tables, D) f32.
+    """
+    if desc is None:
+        desc = describe(tables, hot_sizes, rank_of)
+    elif _key(tables, hot_sizes, rank_of) != desc.key:
+        raise ValueError("the descriptors no longer match the tables they "
+                         "name (a table, hot size or rank_of was replaced); "
+                         "describe the tables again (dlrm.add_remap)")
+    dev = tables[0].device
+    if (indices.dim() != 3 or indices.dtype != torch.int32
+            or indices.shape[1] != len(tables)):
+        raise TypeError(f"indices must be (B, {len(tables)}, L) int32, got "
+                        f"{tuple(indices.shape)} {indices.dtype}")
+    if indices.device != dev:
+        raise ValueError("tables and indices must be on one device")
+    if dev.type == "cpu":
+        return recflash_sls_grouped_ref(tables, hot_sizes, indices, rank_of)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    b, n_t, _ = indices.shape
+    d, dtype = tables[0].shape[1], tables[0].dtype
+    out = torch.empty((b, n_t, d), dtype=torch.float32, device=dev)
+    _launch(desc.tensor.data_ptr(), (0, 0, 0, 0), indices, out, d, dtype,
+            desc.vec)
+    recflash_sls_grouped.launches += 1
+    return out
+
+
+recflash_sls.launches = 0           # kernel launches since the last reset
+recflash_sls_grouped.launches = 0   # kernel launches since the last reset

@@ -8,12 +8,13 @@ logit. Port of ``repro.models.dlrm`` (``init``, ``interact``, ``forward``,
 
 Unlike the reference forward, which takes bags with ``jnp.take`` and the
 interaction with an einsum, this forward routes both through the port's
-kernels: each table's bag goes through the two-tier SLS over the hot prefix
-and the cold tail of the stored table, and the interaction through the Gram
-kernel. The function is the same; the sums differ only in their order.
-``plain=True`` routes them through the kernels' plain versions instead (the
-oracle on the card). The MLPs stay ``torch.matmul``, as the reference
-leaves them to XLA.
+kernels, one launch each per batch: the grouped two-tier SLS reads every
+table's bags over the hot prefix and the cold tail of its stored table,
+translating logical ids through ``rank_of`` inside the kernel, and the fused
+interaction writes the top-MLP input. The function is the same; the sums
+differ only in their order. ``plain=True`` routes them through the kernels'
+plain versions instead (the oracle on the card). The MLPs stay
+``torch.matmul``, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from repro_torch.configs import DLRMConfig
 from repro_torch.device import resolve_device
 from repro_torch.embedding.layout import lookup
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.recflash_sls import describe
 from repro_torch.models.common import mlp, mlp_init, uniform_init
 
 
@@ -50,18 +52,21 @@ def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
 
 def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
              plain: bool = False) -> torch.Tensor:
-    """bottom_out (B,D), bags (B,T,D) -> top-MLP input."""
-    z = torch.cat([bottom_out[:, None, :], bags], dim=1)          # (B,T+1,D)
+    """bottom_out (B,D), bags (B,T,D) -> top-MLP input. The dot interaction
+    is one fused-interaction launch: [bottom_out, upper-triangle dots]."""
     if interaction == "dot":
-        flat = (ops.upper_triangle(ref.dot_interaction_ref(z)) if plain
-                else ops.dot_interaction(z))                      # (B, nC2)
-        return torch.cat([bottom_out, flat], dim=1)
+        fused = ref.dot_interaction_fused_ref if plain else \
+            ops.dot_interaction_fused
+        return fused(bottom_out, bags)                     # (B, D + nC2)
+    z = torch.cat([bottom_out[:, None, :], bags], dim=1)          # (B,T+1,D)
     return z.reshape(z.shape[0], -1)
 
 
 def _bag(params, indices: torch.Tensor, t: int,
          plain: bool = False) -> torch.Tensor:
-    """One table's SLS over its stored table, split at its hot size.
+    """One table's SLS over its stored table, split at its hot size: a
+    per-table launch, with the ids translated by a gather before it.
+    ``forward`` takes all tables at once (``bags``).
 
     With remap enabled (``rank_of`` present) logical ids are first
     translated to ranks on the device (the paper's hash table). A table
@@ -78,13 +83,31 @@ def _bag(params, indices: torch.Tensor, t: int,
     return sls(stored[:hot], stored[hot:], idx)
 
 
+def bags(params, indices: torch.Tensor, plain: bool = False
+         ) -> torch.Tensor:
+    """Every table's SLS in one grouped launch: indices (B, n_tables, L)
+    int32 logical ids -> (B, n_tables, D) f32.
+
+    With remap enabled the kernel translates ids through each ``rank_of``
+    and reads the descriptors ``add_remap`` built; tables without a remap
+    are served with hot size 1, their descriptors built per call.
+    """
+    rank_of = params.get("rank_of")
+    hot = (params["hot_sizes"] if rank_of is not None
+           else [1] * len(params["tables"]))
+    if plain:
+        return ref.recflash_sls_grouped_ref(params["tables"], hot, indices,
+                                            rank_of)
+    return ops.recflash_sls_grouped(params["tables"], hot, indices, rank_of,
+                                    params.get("sls_desc"))
+
+
 def forward(params, batch, cfg: DLRMConfig, plain: bool = False
             ) -> torch.Tensor:
     """batch: dense (B,n_dense) f32, indices (B,n_tables,lookups) int32."""
     x = mlp(params["bot"], batch["dense"])
-    bags = torch.stack([_bag(params, batch["indices"][:, t, :], t, plain)
-                        for t in range(cfg.n_tables)], dim=1)
-    feat = interact(x, bags, cfg.interaction, plain)
+    feat = interact(x, bags(params, batch["indices"], plain),
+                    cfg.interaction, plain)
     return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
 
@@ -93,7 +116,9 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     hot size that splits each stored table into its two tiers.
 
     ``rank_ofs`` are (V,) arrays or tensors, kept as int32 on the tables'
-    device; ``hot_sizes`` defaults to 1 per table.
+    device; ``hot_sizes`` defaults to 1 per table. Also builds the grouped
+    SLS kernel's table descriptors (``sls_desc``), once; the kernel's
+    wrapper refuses them after a table, hot size or rank_of is replaced.
     """
     device = params["tables"][0].device
     rank_of = []
@@ -101,9 +126,10 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
         r = torch.as_tensor(r)
         if r.numel() and int(r.max()) >= 2**31:
             raise ValueError("rank_of does not fit in int32")
-        rank_of.append(r.to(device=device, dtype=torch.int32))
+        rank_of.append(r.to(device=device, dtype=torch.int32).contiguous())
     hot = [1] * len(rank_of) if hot_sizes is None else list(map(int,
                                                                 hot_sizes))
     if len(hot) != len(rank_of):
         raise ValueError("need one hot size per rank_of table")
-    return {**params, "rank_of": rank_of, "hot_sizes": hot}
+    return {**params, "rank_of": rank_of, "hot_sizes": hot,
+            "sls_desc": describe(params["tables"], hot, rank_of)}

@@ -12,13 +12,15 @@ import torch
 
 from repro_torch.configs import DLRMConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.dot_interaction import dot_interaction
-from repro_torch.kernels.recflash_sls import recflash_sls
+from repro_torch.kernels.dot_interaction import (dot_interaction,
+                                                 dot_interaction_fused)
+from repro_torch.kernels.recflash_sls import (describe, recflash_sls,
+                                              recflash_sls_grouped)
 from repro_torch.models import dlrm
 
 pytestmark = pytest.mark.cuda
 
-# f32 sums of <= 20 unit-normal terms (SLS) or <= 128 products (Gram) in two
+# f32 sums of <= 80 unit-normal terms (SLS) or <= 128 products (Gram) in two
 # orders; bf16 inputs are widened exactly, so they share the f32 bound
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -79,6 +81,83 @@ class TestRecFlashSLSOnCard:
         assert recflash_sls.launches == before + 1
 
 
+def _group(gen, rows, d, hot_sizes, b, lk, dtype=torch.float32,
+           remap=True, case="mixed"):
+    """Stored tables, their rank_of (or None) and (B, n_tables, L) ids
+    whose ranks fall in the hot tier, the cold tier or either (case)."""
+    tables, rank_of, ids = [], [], []
+    for v, h in zip(rows, hot_sizes, strict=True):
+        tables.append(torch.randn(v, d, generator=gen, device="cuda")
+                      .to(dtype))
+        lo, hi = {"mixed": (0, v), "all-hot": (0, h),
+                  "all-cold": (min(h, v - 1), v)}[case]
+        ranks = torch.randint(lo, hi, (b, lk), generator=gen, device="cuda")
+        perm = torch.randperm(v, generator=gen, device="cuda")
+        rank_of.append(perm.argsort().to(torch.int32))
+        ids.append(perm[ranks] if remap else ranks)
+    idx = torch.stack(ids, dim=1).to(torch.int32)
+    return tables, (rank_of if remap else None), idx
+
+
+class TestRecFlashSLSGroupedOnCard:
+    ROWS, HOT = (64, 100, 130), (1, 17, 129)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", ["mixed", "all-hot", "all-cold"])
+    @pytest.mark.parametrize("remap", [True, False])
+    def test_vs_plain(self, gen, dtype, case, remap):
+        tables, rank_of, idx = _group(gen, self.ROWS, 64, self.HOT, 16, 20,
+                                      dtype, remap, case)
+        before = recflash_sls_grouped.launches
+        got = recflash_sls_grouped(tables, self.HOT, idx, rank_of)
+        assert recflash_sls_grouped.launches == before + 1
+        torch.testing.assert_close(
+            got, ops.sls_grouped_ref(tables, self.HOT, idx, rank_of), **TOL)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d,lk", [(18, 5), (8, 1), (128, 80), (64, 33)])
+    def test_widths_and_lookups(self, gen, dtype, d, lk):
+        # D=18: scalar path; L=80 and 33 run the 32-slot ring past its depth
+        tables, rank_of, idx = _group(gen, self.ROWS, d, self.HOT, 8, lk,
+                                      dtype)
+        torch.testing.assert_close(
+            recflash_sls_grouped(tables, self.HOT, idx, rank_of),
+            ops.sls_grouped_ref(tables, self.HOT, idx, rank_of), **TOL)
+
+    def test_strided_indices_and_descriptors(self, gen):
+        tables, rank_of, idx = _group(gen, self.ROWS, 64, self.HOT, 16, 20)
+        strided = idx.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+        assert not strided.is_contiguous()
+        want = ops.sls_grouped_ref(tables, self.HOT, idx, rank_of)
+        desc = describe(tables, self.HOT, rank_of)
+        torch.testing.assert_close(
+            recflash_sls_grouped(tables, self.HOT, strided, rank_of, desc),
+            want, **TOL)
+        before = recflash_sls_grouped.launches
+        replaced = [tables[0].clone()] + tables[1:]
+        with pytest.raises(ValueError):
+            recflash_sls_grouped(replaced, self.HOT, idx, rank_of, desc)
+        with pytest.raises(ValueError):
+            recflash_sls_grouped(tables, (2,) + self.HOT[1:], idx, rank_of,
+                                 desc)
+        with pytest.raises(TypeError):
+            recflash_sls_grouped(tables, self.HOT, idx.long(), rank_of, desc)
+        assert recflash_sls_grouped.launches == before
+
+    def test_descriptor_check_after_add_remap(self, gen):
+        cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
+                         n_rows=(500,) * 3, lookups=4, bot_mlp=(32, 16),
+                         top_mlp=(32,))
+        params = dlrm.add_remap(dlrm.init(0, cfg, device="cuda"),
+                                [torch.arange(500)] * 3, [5, 50, 499])
+        idx = torch.randint(0, 500, (16, 3, 4), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        dlrm.bags(params, idx)
+        params["tables"][1] = params["tables"][1].clone()
+        with pytest.raises(ValueError):
+            dlrm.bags(params, idx)
+
+
 class TestDotInteractionOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("b,t,d", [(64, 9, 16), (128, 27, 64),
@@ -94,6 +173,29 @@ class TestDotInteractionOnCard:
         torch.testing.assert_close(ops.dot_interaction(z),
                                    ops.upper_triangle(ops.dot_ref(z)), **TOL)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,t,d", [(64, 9, 16), (128, 27, 64),
+                                       (64, 33, 128), (8, 3, 18)])
+    def test_fused_vs_plain(self, gen, b, t, d, dtype):
+        x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+        bags = torch.randn(b, t - 1, d, generator=gen, device="cuda").to(dtype)
+        before = dot_interaction_fused.launches
+        got = dot_interaction_fused(x, bags)
+        assert dot_interaction_fused.launches == before + 1
+        assert got.shape == (b, d + t * (t - 1) // 2)
+        torch.testing.assert_close(got, ops.fused_ref(x, bags), **TOL)
+
+    def test_fused_unaligned_rows(self, gen):
+        # a row stride of 65 floats: staged by plain loads, not cp.async
+        wide = torch.randn(16, 65, generator=gen, device="cuda")
+        bags = torch.randn(16, 26, 64, generator=gen, device="cuda")
+        x = wide[:, 1:]
+        torch.testing.assert_close(dot_interaction_fused(x, bags),
+                                   ops.fused_ref(x, bags), **TOL)
+        with pytest.raises(ValueError):
+            dot_interaction_fused(x, bags.transpose(1, 2).contiguous()
+                                  .transpose(1, 2))
+
 
 def test_forward_kernels_vs_plain(gen):
     cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
@@ -106,6 +208,13 @@ def test_forward_kernels_vs_plain(gen):
     batch = {"dense": torch.randn(16, 13, generator=gen, device="cuda"),
              "indices": torch.randint(0, 500, (16, 3, 4), generator=gen,
                                       device="cuda", dtype=torch.int32)}
-    torch.testing.assert_close(dlrm.forward(params, batch, cfg),
+    counts = (recflash_sls_grouped.launches, dot_interaction_fused.launches,
+              recflash_sls.launches, dot_interaction.launches)
+    got = dlrm.forward(params, batch, cfg)
+    # one grouped SLS and one fused interaction, nothing per table
+    assert (recflash_sls_grouped.launches, dot_interaction_fused.launches,
+            recflash_sls.launches, dot_interaction.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    torch.testing.assert_close(got,
                                dlrm.forward(params, batch, cfg, plain=True),
                                rtol=1e-4, atol=1e-5)

@@ -98,6 +98,62 @@ class TestForwardParity:
             np.asarray(jbf["tables"][0], np.float32))
 
 
+class TestGroupedBags:
+    def _params(self, hot_sizes=(5, 50, 499)):
+        cfg = configs.DLRMConfig(**TINY)
+        params = dlrm.init(0, cfg, device="cpu")
+        perms = np.random.default_rng(6).permuted(
+            np.tile(np.arange(500), (3, 1)), axis=1)
+        return cfg, dlrm.add_remap(params, list(perms), hot_sizes)
+
+    @pytest.mark.parametrize("remap", [True, False])
+    def test_bags_equal_the_per_table_path(self, remap):
+        cfg, params = self._params()
+        if not remap:
+            params = {k: params[k] for k in ("tables", "bot", "top")}
+        _, tb = _batch(cfg, seed=4)
+        got = dlrm.bags(params, tb["indices"])
+        assert got.shape == (16, 3, 16) and got.dtype == torch.float32
+        for t in range(3):
+            np.testing.assert_array_equal(
+                got[:, t].numpy(),
+                dlrm._bag(params, tb["indices"][:, t, :], t).numpy())
+        np.testing.assert_array_equal(
+            dlrm.bags(params, tb["indices"], plain=True).numpy(),
+            got.numpy())
+
+    def test_add_remap_describes_the_tables_once(self):
+        cfg, params = self._params()
+        desc = params["sls_desc"]
+        assert desc.tensor.shape == (3, 6)
+        assert desc.tensor[:, 3].tolist() == [5, 50, 499]
+        assert desc.tensor[0, 0] == params["tables"][0].data_ptr()
+        assert desc.tensor[0, 2] == params["rank_of"][0].data_ptr()
+        _, tb = _batch(cfg, seed=5)
+        dlrm.forward(params, tb, cfg)
+        params["tables"][2] = params["tables"][2].clone()
+        with pytest.raises(ValueError):
+            dlrm.forward(params, tb, cfg)
+        with pytest.raises(ValueError):
+            self._params(hot_sizes=(5, 50, 501))
+
+    def test_interact_is_the_fused_entry(self):
+        rng = np.random.default_rng(7)
+        x = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
+        bags = torch.from_numpy(rng.standard_normal((4, 3, 16)).astype(
+            np.float32))
+        want = jdlrm.interact(jnp.asarray(x.numpy()), jnp.asarray(
+            bags.numpy()), "dot")
+        for plain in (False, True):
+            np.testing.assert_allclose(
+                dlrm.interact(x, bags, "dot", plain).numpy(),
+                np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(
+            dlrm.interact(x, bags, "cat").numpy(),
+            np.asarray(jdlrm.interact(jnp.asarray(x.numpy()),
+                                      jnp.asarray(bags.numpy()), "cat")))
+
+
 class TestInit:
     def test_shapes_and_ranges_match_reference(self):
         for jcfg in (jdlrm.DLRMConfig(**TINY), jdlrm.RMC1):

@@ -18,10 +18,13 @@ from repro.embedding import layout as jax_layout
 from repro.kernels import ops as jax_ops
 from repro.kernels.dot_interaction import dot_interaction as jax_dot
 from repro.kernels.recflash_sls import recflash_sls as jax_sls
+from repro.models.dlrm import interact as jax_interact
 from repro_torch.embedding import bag, layout
 from repro_torch.kernels import ops
-from repro_torch.kernels.dot_interaction import dot_interaction
-from repro_torch.kernels.recflash_sls import recflash_sls
+from repro_torch.kernels.dot_interaction import (dot_interaction,
+                                                 dot_interaction_fused)
+from repro_torch.kernels.recflash_sls import (describe, recflash_sls,
+                                              recflash_sls_grouped)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -98,6 +101,102 @@ class TestRecFlashSLS:
         assert recflash_sls.launches == before    # counts kernel launches only
 
 
+def _group_inputs(rows, hot_sizes, d, b, lk, dtype="float32", remap=True,
+                  seed=0):
+    """Stored tables, rank_of hash tables and (B, n_tables, L) logical ids
+    for both packages; rank_of is None on both sides without ``remap``."""
+    rng = np.random.default_rng(seed)
+    jt, tt, jr, tr, ids = [], [], [], [], []
+    for v in rows:
+        j, t = _both(rng.standard_normal((v, d)).astype(np.float32), dtype)
+        jt.append(j)
+        tt.append(t)
+        r = rng.permutation(v).astype(np.int32)
+        jr.append(jnp.asarray(r))
+        tr.append(torch.from_numpy(r))
+        ids.append(rng.integers(0, v, (b, lk)))
+    idx = np.stack(ids, axis=1).astype(np.int32)
+    return ((jt, jr if remap else None, jnp.asarray(idx)),
+            (tt, tr if remap else None, torch.from_numpy(idx)))
+
+
+class TestRecFlashSLSGrouped:
+    # the reference: the Pallas kernel in interpret mode, table by table,
+    # after jnp.take(rank_of) (src/repro/models/dlrm.py:124); tolerances as
+    # for the per-table kernel
+    @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
+                                            ("bfloat16", 2e-2)])
+    @pytest.mark.parametrize("remap", [True, False])
+    @pytest.mark.parametrize("rows,hot_sizes,d,lk", [
+        ((64, 100, 130), (1, 17, 129), 16, 5),
+        ((128, 128), (64, 2), 8, 20),
+        ((50,), (10,), 32, 1),
+    ])
+    def test_vs_reference_per_table(self, rows, hot_sizes, d, lk, remap,
+                                    dtype, rtol):
+        (jt, jr, ji), (tt, tr, ti) = _group_inputs(rows, hot_sizes, d, 8, lk,
+                                                   dtype, remap)
+        got = recflash_sls_grouped(tt, hot_sizes, ti, tr)
+        assert got.dtype == torch.float32 and got.shape == (8, len(rows), d)
+        for t, h in enumerate(hot_sizes):
+            ranks = ji[:, t, :] if jr is None else jnp.take(jr[t],
+                                                            ji[:, t, :])
+            want = jax_sls(jt[t][:h], jt[t][h:], ranks, block_b=8,
+                           interpret=True)
+            np.testing.assert_allclose(got[:, t].numpy(), np.asarray(want),
+                                       rtol=rtol, atol=1e-6)
+
+    def test_strided_indices(self):
+        _, (tt, tr, ti) = _group_inputs((64, 100), (3, 50), 16, 8, 6)
+        strided = ti.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+        assert not strided.is_contiguous()
+        np.testing.assert_array_equal(
+            recflash_sls_grouped(tt, (3, 50), strided, tr).numpy(),
+            recflash_sls_grouped(tt, (3, 50), ti, tr).numpy())
+
+    def test_descriptors_are_checked(self):
+        _, (tt, tr, ti) = _group_inputs((64, 100), (3, 50), 16, 8, 6)
+        desc = describe(tt, (3, 50), tr)
+        assert desc.tensor.shape == (2, 6) and desc.tensor.dtype == \
+            torch.int64
+        assert desc.tensor[:, 3:].tolist() == [[3, 64, 64], [50, 100, 100]]
+        assert desc.tensor[1, 2] == tr[1].data_ptr()
+        recflash_sls_grouped(tt, (3, 50), ti, tr, desc)
+        for tables, hot, rank_of in (([tt[0].clone(), tt[1]], (3, 50), tr),
+                                     (tt, (4, 50), tr),
+                                     (tt, (3, 50), [tr[0].clone(), tr[1]]),
+                                     (tt, (3, 50), None)):
+            with pytest.raises(ValueError):
+                recflash_sls_grouped(tables, hot, ti, rank_of, desc)
+
+    def test_rejects_what_the_kernel_does_not_take(self):
+        _, (tt, tr, ti) = _group_inputs((64, 100), (3, 50), 16, 8, 6)
+        before = recflash_sls_grouped.launches
+        with pytest.raises(TypeError):
+            recflash_sls_grouped(tt, (3, 50), ti.long(), tr)
+        with pytest.raises(TypeError):
+            recflash_sls_grouped(tt, (3, 50), ti[:, :1], tr)
+        with pytest.raises(TypeError):
+            recflash_sls_grouped(tt, (3, 50), ti, [r.long() for r in tr])
+        with pytest.raises(ValueError):
+            recflash_sls_grouped([tt[0], tt[1][:, :8]], (3, 50), ti, tr)
+        with pytest.raises(ValueError):
+            recflash_sls_grouped(tt, (0, 50), ti, tr)
+        with pytest.raises(ValueError):
+            recflash_sls_grouped(tt, (3,), ti, tr)
+        recflash_sls_grouped(tt, (3, 50), ti, tr)  # CPU: the plain version
+        assert recflash_sls_grouped.launches == before
+
+    def test_public_op_is_the_per_table_ops(self):
+        _, (tt, tr, ti) = _group_inputs((64, 100), (3, 50), 16, 8, 6)
+        got = ops.recflash_sls_grouped(tt, (3, 50), ti, tr)
+        for t, h in enumerate((3, 50)):
+            ranks = layout.lookup(tr[t], ti[:, t, :])
+            np.testing.assert_array_equal(
+                got[:, t].numpy(),
+                ops.recflash_sls(tt[t][:h], tt[t][h:], ranks).numpy())
+
+
 class TestDotInteraction:
     # f32 dots over D in two orders (near-zero off-diagonal entries make a
     # pure rtol meaningless, hence atol 1e-5); bf16 keeps the reference's
@@ -133,6 +232,41 @@ class TestDotInteraction:
     def test_block_b_must_divide(self):
         with pytest.raises(ValueError):
             dot_interaction(torch.zeros(10, 3, 4), block_b=4)
+
+
+class TestDotInteractionFused:
+    # against the reference's dlrm.interact (cat, einsum, triangle, cat);
+    # tolerances of the Gram kernel
+    @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                           ("bfloat16", 3e-2)])
+    @pytest.mark.parametrize("b,t,d", [(64, 9, 16), (128, 27, 64),
+                                       (64, 33, 128), (8, 3, 18)])
+    def test_vs_reference_interact(self, b, t, d, dtype, tol):
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal((b, d)).astype(np.float32)
+        bags = rng.standard_normal((b, t - 1, d)).astype(np.float32)
+        (jx, tx), (jb, tb) = _both(x, dtype), _both(bags, dtype)
+        want = jax_interact(jx, jb, "dot")
+        got = dot_interaction_fused(tx, tb)
+        assert got.dtype == torch.float32
+        assert got.shape == (b, d + t * (t - 1) // 2) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+    def test_public_op_and_rejects(self):
+        x, bags = torch.randn(4, 8), torch.randn(4, 5, 8)
+        before = dot_interaction_fused.launches
+        np.testing.assert_array_equal(
+            ops.dot_interaction_fused(x, bags).numpy(),
+            torch.cat([x, ops.dot_interaction(torch.cat([x[:, None], bags],
+                                                        1))], 1).numpy())
+        with pytest.raises(ValueError):
+            dot_interaction_fused(x, bags[:, :, :4])
+        with pytest.raises(TypeError):
+            dot_interaction_fused(x, bags.double())
+        with pytest.raises(TypeError):
+            dot_interaction_fused(x.long(), bags.long())
+        assert dot_interaction_fused.launches == before
 
 
 class TestRemapLayout:
