@@ -10,12 +10,16 @@ Phases, each of which fails the run when it fails:
    grouped SLS over 26 tables x 1M rows with rank_of (and without) at the
    dlrm-rm2 serving shapes, the full Gram and the fused interaction at
    (64, 27, 64) and the reference's odd shape (8, 3, 18);
-3. serve: ``repro_torch.launch.serve`` at dlrm-rm2's published width
-   (26 tables x 1M rows x 64 f32 on the card, 80 lookups, batch 64); the
-   kernels' launch counts over that run must be one grouped SLS and one
-   fused interaction per batch and no per-table or full-Gram launch, the
-   logits finite, and one batch equal to the same forward through the
-   plain versions;
+3. serve: ``repro_torch.launch.serve`` at dlrm-rm2's published width: a
+   ``Deployment`` of 26 tables x 1M rows replays the stream through every
+   NAND policy lane on the host (simulated flashsim time, printed as the
+   reference serve's report), then the card scores the recflash lane's
+   batches (26 tables x 1M rows x 64 f32 on the card, 80 lookups, batch
+   64); the scored batches must be the lane's, the kernels' launch counts
+   over that run one grouped SLS and one fused interaction per lane batch
+   and no per-table or full-Gram launch, the logits finite, one batch
+   equal to the same forward through the plain versions, and each lane's
+   simulated p99 the reference serve's for the same flags;
 4. time: each entry, its plain version and its yardstick (one PyTorch call
    for the same function where there is one, never called by the port;
    for the grouped SLS the per-table path it replaced) with CUDA events at
@@ -38,6 +42,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -62,6 +67,11 @@ F32_FLOPS = 67e12
 # the main path: dlrm-rm2 at its published width, full batches of 64
 SERVE = dict(arch="dlrm_rm2", requests=512, batch=64, rate=64000.0,
              max_wait_us=1000.0, seed=0)
+# the reference serve's report for SERVE's flags (``repro.launch.serve
+# --arch dlrm_rm2 --requests 512 --rate 64000 --skip-compute``): each lane's
+# simulated p99 in ms as its report row prints it
+REFERENCE_P99_MS = {"recssd": "203153.24", "rmssd": "58200.97",
+                    "recflash": "2508.23"}
 # f32 sums of up to 80 unit-normal terms in two orders: the worst-case
 # rounding bound L * 2^-24 * sum|x| is ~3e-4; bf16 inputs are widened exactly,
 # so they share it
@@ -267,29 +277,60 @@ def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
         fn.launches = 0
     res = serve_mod.serve(device="cuda", **SERVE)
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    cfg, n_b = res.cfg, len(res.batches)
+    cfg, lane = res.cfg, res.traces["recflash"].batches
+    n_b = len(lane)
+    print(f"[serve] host set-up {res.t_setup:.2f} s (Deployment: offline "
+          f"sweep and {len(res.traces)} policy lanes over {cfg.n_tables} "
+          f"tables x {cfg.n_rows[0]} rows; the stream), replay of every lane "
+          f"{res.t_sim:.2f} s, remapped tables on the card {res.t_model:.2f} s")
+    print("[serve] per-policy report, simulated flashsim time (not card "
+          "time):")
+    for line in serve_mod.report_lines(res):
+        if line.strip():
+            print(f"[serve]   {line.strip()}")
     print(f"[serve] {cfg.name}: {cfg.n_tables} tables x {cfg.n_rows[0]} rows "
           f"x {cfg.embed_dim} f32 on the card, {cfg.lookups} lookups; "
-          f"{res.n_scored} requests in {n_b} batches (sizes "
-          f"{[b.size for b in res.batches]})")
+          f"{res.n_scored} requests in the recflash lane's {n_b} batches "
+          f"(sizes {[b.size for b in lane]})")
     print(f"scored {res.n_scored} requests in {res.t_compute:.2f}s compute "
           f"({1e3 * res.t_compute / n_b:.2f} ms/batch forward, first batch "
           f"included)")
     print(f"[serve] launches: {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(res.inputs) != n_b:
+        raise AssertionError(f"scored {len(res.inputs)} batches, the lane "
+                             f"formed {n_b}")
+    for inp, b in zip(res.inputs, lane, strict=True):
+        rows = np.stack([r.rows.reshape(cfg.n_tables, cfg.lookups)
+                         for r in b.requests])
+        if not np.array_equal(inp["indices"][:b.size].cpu().numpy(), rows):
+            raise AssertionError("a scored batch is not the recflash "
+                                 "lane's batch")
     want = {"recflash_sls_grouped": n_b, "dot_interaction_fused": n_b,
             "recflash_sls": 0, "dot_interaction": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if res.n_scored != SERVE["requests"]:
         raise AssertionError(f"scored {res.n_scored} of {SERVE['requests']}")
-    for lg, b in zip(res.logits, res.batches, strict=True):
+    for lg, b in zip(res.logits, lane, strict=True):
         if lg.shape != (b.size,) or not torch.isfinite(lg).all():
             raise AssertionError("logits are not finite or misshapen")
     plain = dlrm.forward(res.params, res.inputs[0], cfg, plain=True)
     compare("serve batch 0 logits vs the plain-routed forward",
-            res.logits[0], plain[:res.batches[0].size], LOGIT_TOL)
+            res.logits[0], plain[:lane[0].size], LOGIT_TOL)
     return res, launches
+
+
+def check_report(res: serve_mod.ServeResult) -> None:
+    """Each lane's simulated p99 against the reference serve's report for
+    the same flags (checked last, so that a miss leaves the timings)."""
+    got = {pol: f"{tr.report.p99_us / 1e3:.2f}"
+           for pol, tr in res.traces.items()}
+    print(f"[check] simulated p99 ms per lane {got}, reference "
+          f"{REFERENCE_P99_MS}")
+    if got != REFERENCE_P99_MS:
+        raise AssertionError("the policy lanes' report differs from the "
+                             "reference serve's")
 
 
 def per_table_bags(p: dict, indices: torch.Tensor) -> torch.Tensor:
@@ -483,6 +524,7 @@ def main() -> int:
     res, launches = phase_serve()
     records = phase_time(res, launches, err)
     phase_profile(res)
+    check_report(res)
     for r in records:
         for e in [r, *r["entries"]]:
             yard = (f"library {e['library_ms'] * 1e3:.2f} us"

@@ -3,9 +3,9 @@ archs the serving path takes (numpy and dataclasses only).
 
 Copied from the reference: ``DLRMConfig``/``make_rmc``/RMC1-3
 (``repro.models.dlrm``), ``small_dlrm`` (``repro.launch.train``), the
-dlrm-mlperf and dlrm-rm2 shapes (``repro.configs``) and the serving-shape
-rule of ``DeploymentConfig.from_arch`` + ``arch_model_config``
-(``repro.serving.deployment``).
+dlrm-mlperf and dlrm-rm2 shapes (``repro.configs``). ``arch_shape`` is
+the arch resolution of ``repro.serving.deployment``; ``arch_model_config``
+goes through the port's own ``DeploymentConfig``.
 """
 
 from __future__ import annotations
@@ -115,19 +115,13 @@ def arch_shape(name: str) -> DLRMConfig:
 def arch_model_config(arch: str, n_tables: int | None = None,
                       n_rows: int | None = None,
                       lookups: int | None = None) -> DLRMConfig:
-    """The serving model of ``arch``: the shape the reference's
-    ``arch_model_config(DeploymentConfig.from_arch(arch, ...))`` gives.
+    """The serving model of ``arch``:
+    ``arch_model_config(DeploymentConfig.from_arch(arch, ...))``.
 
     Heterogeneous vocabs (dlrm_mlperf) are made uniform at
     ``min(1M, max vocab)`` rows per table unless ``n_rows`` overrides it;
     ``n_tables``/``lookups`` override the arch shape.
     """
-    shape = arch_shape(arch)
-    if n_rows is None:
-        vocabs = set(shape.n_rows)
-        n_rows = (shape.n_rows[0] if len(vocabs) == 1
-                  else min(1_000_000, max(vocabs)))
-    n_tables = shape.n_tables if n_tables is None else n_tables
-    return dataclasses.replace(
-        shape, n_tables=n_tables, n_rows=(n_rows,) * n_tables,
-        lookups=shape.lookups if lookups is None else lookups)
+    from repro_torch.serving import deployment   # it imports this module
+    return deployment.arch_model_config(deployment.DeploymentConfig.from_arch(
+        arch, n_tables=n_tables, n_rows=n_rows, lookups=lookups))
