@@ -20,12 +20,28 @@ Phases, each of which fails the run when it fails:
    and no per-table or full-Gram launch, the logits finite, one batch
    equal to the same forward through the plain versions, and each lane's
    simulated p99 the reference serve's for the same flags;
-4. time: each entry, its plain version and its yardstick (one PyTorch call
+4. retrieval: ``dlrm.retrieval_score`` on the served model, 1 user x
+   1,000,000 candidates (the retrieval_cand shape): one grouped SLS, one
+   per-table SLS and one fused interaction launch, the scores equal to the
+   plain-routed version's, its time per call;
+5. time: each entry, its plain version and its yardstick (one PyTorch call
    for the same function where there is one, never called by the port;
    for the grouped SLS the per-table path it replaced) with CUDA events at
-   the main path's inputs, and the serve step per batch;
-5. profile: the device's busy share over the serve steps and its time by
-   kernel, from a torch.profiler trace.
+   the main path's inputs, and the serve step per batch; the grouped and
+   fused entries and their backwards (plain PyTorch) also at the training
+   batch of 4096;
+6. profile: the device's busy share over the serve steps and its time by
+   kernel, from a torch.profiler trace;
+7. train: ``repro_torch.launch.train``'s DLRM pipeline at dlrm-rm2's width
+   (remap on, batch 4096), a few steps through ``TrainLoop`` with one
+   checkpoint: one grouped SLS and one fused interaction per step and no
+   other launch, finite losses, the step's time split into forward,
+   backward and optimizer, peak device memory, the checkpoint's bytes and
+   seconds; one step's loss and gradients through the kernels'
+   ``autograd.Function``s against autograd of the plain-routed forward;
+   then, at ``small_dlrm``, a crashed-and-resumed ``TrainLoop`` against an
+   uninterrupted one, and the training CLI run and resumed as the
+   reference's tests/test_launch.py drives it.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -36,9 +52,14 @@ and prints no result.
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,15 +70,20 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import checkpoint, configs, tree  # noqa: E402
+from repro_torch.data.tracegen import generate_sls_batch  # noqa: E402
 from repro_torch.embedding.layout import lookup  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
-    dot_interaction, dot_interaction_fused)
+    dot_interaction, dot_interaction_fused, dot_interaction_fused_backward)
 from repro_torch.kernels.recflash_sls import (  # noqa: E402
-    describe, recflash_sls, recflash_sls_grouped)
+    describe, recflash_sls, recflash_sls_grouped,
+    recflash_sls_grouped_backward)
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import dlrm  # noqa: E402
 from repro_torch.models.common import mlp  # noqa: E402
+from repro_torch.runtime import LoopConfig, StepFailure, TrainLoop  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 FLOP/s
 # outside the tensor cores (both kernels add and multiply in f32 on the
@@ -89,6 +115,21 @@ COUNTERS = {"recflash_sls_grouped": recflash_sls_grouped,
 # logits of the kernel-routed forward against the plain-routed one: the bag
 # and Gram sums differ in order only (bags are ~1e-2, logits ~1)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
+# the training path: launch/train.py's DLRM pipeline at dlrm-rm2's width,
+# its flags as Namespace fields (the CLI's defaults but the batch)
+TRAIN = dict(seed=0, batch=4096, lr=1e-3, lr_table=0.02, device="cuda")
+TRAIN_STEPS = 8
+# retrieval_cand (src/repro/configs/recsys_common.py): 1 user x 1M items
+N_CANDIDATES = 1_000_000
+# one step's loss through the Functions against the plain-routed loss, and
+# its gradients: f32 sums over the 4096-sample batch, the 27 interaction
+# vectors and index_add_'s atomics, in other orders. An entry where a batch
+# sum cancels (a bias gradient far below its per-sample terms) keeps the
+# absolute error of those terms, so each gradient tensor is held as a
+# whole: ||got - want|| <= GRAD_REL_L2 * ||want||. The same holds a resumed
+# run's state against an uninterrupted one's (atomics again).
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_REL_L2 = 1e-4
 
 
 def card_line() -> str:
@@ -333,6 +374,60 @@ def check_report(res: serve_mod.ServeResult) -> None:
                              "reference serve's")
 
 
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def phase_retrieval(res: serve_mod.ServeResult) -> dict:
+    """retrieval_score on the served dlrm-rm2 model: 1 user x 1M candidates,
+    launch counts, scores against the plain-routed version, time per
+    call."""
+    p, cfg = res.params, res.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"dense": torch.randn(1, cfg.n_dense, generator=gen,
+                                  device="cuda"),
+             "indices": res.inputs[0]["indices"][:1],
+             "candidates": torch.randint(0, cfg.n_rows[-1], (N_CANDIDATES,),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+    with torch.inference_mode():
+        reset_counts()
+        scores = dlrm.retrieval_score(p, batch, cfg)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = {"recflash_sls_grouped": 1, "dot_interaction_fused": 1,
+                "recflash_sls": 1, "dot_interaction": 0}
+        print(f"[retrieval] 1 user x {N_CANDIDATES} candidates, "
+              f"{cfg.n_tables} tables x {cfg.n_rows[0]} rows x "
+              f"{cfg.embed_dim}: launches {launches}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want:
+            raise AssertionError(f"retrieval launch counts {launches} != "
+                                 f"{want}")
+        if scores.shape != (N_CANDIDATES,) or not torch.isfinite(
+                scores).all():
+            raise AssertionError("retrieval scores are not finite or "
+                                 "misshapen")
+        err = compare("retrieval scores vs the plain-routed version",
+                      scores, dlrm.retrieval_score(p, batch, cfg, plain=True),
+                      LOGIT_TOL)
+        ms = time_ms(lambda: dlrm.retrieval_score(p, batch, cfg), [()],
+                     reps=5, launches=24)
+        plain_ms = time_ms(lambda: dlrm.retrieval_score(p, batch, cfg,
+                                                        plain=True),
+                           [()], reps=2, launches=300)
+    print(f"[retrieval] {ms:.3f} ms per call on the card (plain-routed "
+          f"{plain_ms:.3f} ms), {N_CANDIDATES / ms / 1e3:.1f} M "
+          f"candidates/s")
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
 def per_table_bags(p: dict, indices: torch.Tensor) -> torch.Tensor:
     """The per-table path the grouped launch replaced: per table an index
     copy, the rank_of gather and a per-table SLS launch, then a stack."""
@@ -348,6 +443,43 @@ def per_table_forward(p: dict, batch: dict, cfg) -> torch.Tensor:
     z = torch.cat([x[:, None, :], per_table_bags(p, batch["indices"])], 1)
     feat = torch.cat([x, ops.dot_interaction(z)], dim=1)
     return mlp(p["top"], feat)[:, 0]
+
+
+def time_train_shapes(p: dict, cfg) -> dict[str, dict[str, float]]:
+    """The grouped SLS and the fused interaction at the training batch
+    (``launch/train.py``'s batch 0 at batch 4096, through the served
+    model's remap), and their Functions' backwards (plain PyTorch): device
+    ms per call."""
+    b = TRAIN["batch"]
+    tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0], cfg.lookups,
+                                  b, k=0.0, seed=0)
+    idx = torch.from_numpy(rows.reshape(b, cfg.n_tables, cfg.lookups)
+                           .astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = mlp(p["bot"], torch.randn(b, cfg.n_dense, generator=gen,
+                                  device="cuda"))
+    bags = dlrm.bags(p, idx)
+    g_bags = torch.randn(bags.shape, generator=gen, device="cuda")
+    g_feat = torch.randn(b, cfg.top_in, generator=gen, device="cuda")
+    n_rows = [t.shape[0] for t in p["tables"]]
+    out = {
+        "recflash_sls_grouped": dict(
+            train_ms=time_ms(recflash_sls_grouped,
+                             [(p["tables"], p["hot_sizes"], idx, p["rank_of"],
+                               p["sls_desc"])], reps=20),
+            backward_ms=time_ms(recflash_sls_grouped_backward,
+                                [(g_bags, n_rows, idx, p["rank_of"])],
+                                reps=3, launches=6 * cfg.n_tables)),
+        "dot_interaction_fused": dict(
+            train_ms=time_ms(dot_interaction_fused, [(x, bags)], reps=50),
+            backward_ms=time_ms(dot_interaction_fused_backward,
+                                [(g_feat, x, bags)], reps=20, launches=12)),
+    }
+    for name, t in out.items():
+        print(f"[time] {name} at the training batch ({b}): forward "
+              f"{t['train_ms'] * 1e3:.2f} us, its Function's backward "
+              f"(plain PyTorch) {t['backward_ms'] * 1e3:.2f} us")
+    return out
 
 
 def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
@@ -396,6 +528,7 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
     dot_bound, dot_by = bound_ms(b * t * dim * 4 + b * t * t * 4,
                                  2 * b * t * t * dim)
     bmm_ms = time_ms(lambda z: torch.bmm(z, z.transpose(1, 2)), zs, reps=50)
+    train_shapes = time_train_shapes(p, cfg)
     sls_src = dict(route="cuda",
                    source="src/repro_torch/kernels/csrc/recflash_sls.cu",
                    replaces="src/repro/kernels/recflash_sls.py:99")
@@ -457,6 +590,8 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
           f"launches: mean {sls_bytes / n / 1e6:.3f} MB")
     print(f"[time] torch.bmm alone on the interaction's z ({b}, {t}, {dim}) "
           f"f32: {bmm_ms * 1e3:.2f} us")
+    for r in records:
+        r.update(train_shapes[r["entry"]])
     forwards = {"kernels": lambda inp: dlrm.forward(p, inp, cfg),
                 "plain versions": lambda inp: dlrm.forward(p, inp, cfg,
                                                            plain=True),
@@ -510,31 +645,292 @@ def phase_profile(res: serve_mod.ServeResult) -> None:
               f"{len(times) / n_b:5.1f}x  {name[:100]}")
 
 
+def _median(xs: list[float]) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def check_tensors(label: str, got, want) -> float:
+    """Each tensor of ``got`` against its counterpart in ``want``: finite,
+    and ||got - want|| <= GRAD_REL_L2 * ||want|| (a zero ``want`` must be
+    matched exactly). Returns the largest relative error."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        a, b = a.double(), b.double()
+        err = float(torch.linalg.vector_norm(a - b))
+        ref = float(torch.linalg.vector_norm(b))
+        rel = err / ref if ref else (0.0 if err == 0 else float("inf"))
+        worst = max(worst, rel)
+        if rel > GRAD_REL_L2 or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: tensor {i} {tuple(a.shape)} "
+                                 f"differs: relative error {rel:.3e} > "
+                                 f"{GRAD_REL_L2}")
+    print(f"[check] {label}: {len(got)} tensors, largest relative error "
+          f"||got - want|| / ||want|| {worst:.3e} (limit {GRAD_REL_L2}) ok")
+    return worst
+
+
+def phase_train() -> dict:
+    """launch/train.py's DLRM pipeline at dlrm-rm2's width through
+    TrainLoop, one checkpoint; launches per step, losses, step breakdown,
+    memory, checkpoint bytes and seconds; one step's gradients against the
+    plain-routed autograd."""
+    cfg = configs.DLRM_RM2
+    args = argparse.Namespace(**TRAIN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, loss_fn, batch_fn = train_mod._dlrm_pipeline(
+        args, remap=True, cfg=cfg)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    step_fn = train_mod.make_step(opt, loss_fn)
+    batch_s, step_s, losses = [], [], []
+
+    def timed_batch(step):
+        t = time.perf_counter()
+        batch = batch_fn(step)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t)
+        return batch
+
+    step_peak = []
+
+    def timed_step(state, batch):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_peak.append(torch.cuda.max_memory_allocated() / 2**30)
+        losses.append(float(out[2]))
+        return out
+
+    n_param = sum(x.numel() for x in tree.leaves(params))
+    print(f"[train] {cfg.name}: {cfg.n_tables} tables x {cfg.n_rows[0]} rows "
+          f"x {cfg.embed_dim} f32, {n_param / 1e6:.1f}M parameters, remap "
+          f"on, batch {TRAIN['batch']}; set-up (init, sweep, remap) "
+          f"{t_setup:.2f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, its peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the loop gets the only reference to the initial state (a list popped
+    # into the call), so that the initial tables die after the first step:
+    # a name held here would keep 6.7 GB alive for the whole loop
+    init = [(params, opt.init(params),
+             torch.zeros((), device=TRAIN["device"]))]
+    del params
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        need = sum(x.numel() * x.element_size() for x in tree.leaves(init))
+        print(f"[train] checkpoint directory {ckpt_dir}: {free / 1e9:.1f} "
+              f"GB free, the state is {need / 1e9:.2f} GB")
+        loop = TrainLoop(cfg=LoopConfig(total_steps=TRAIN_STEPS,
+                                        ckpt_dir=ckpt_dir,
+                                        ckpt_every=TRAIN_STEPS, keep_ckpts=1),
+                         step_fn=timed_step, batch_fn=timed_batch)
+        reset_counts()
+        t0 = time.perf_counter()
+        state = loop.run(init.pop())
+        t_run = time.perf_counter() - t0
+        launches = read_counts()
+        peak = max(step_peak) * 2**30
+        npz = Path(ckpt_dir) / f"step_{TRAIN_STEPS:08d}" / "arrays.npz"
+        ckpt_bytes = npz.stat().st_size
+        if checkpoint.latest_step(ckpt_dir) != TRAIN_STEPS:
+            raise AssertionError("the loop's checkpoint is missing")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t_ckpt = t_run - sum(step_s) - sum(batch_s)
+    warm = step_s[1:]
+    print(f"[train] {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 6) for x in losses]}")
+    print(f"[train] step (forward, backward, optimizer; synchronised): "
+          f"first {step_s[0] * 1e3:.1f} ms, warm median "
+          f"{_median(warm) * 1e3:.1f} ms, min {min(warm) * 1e3:.1f} ms; "
+          f"batch_fn (host) median {_median(batch_s):.3f} s; launches "
+          f"{launches}")
+    print(f"[train] peak device memory {peak / 2**30:.2f} GiB; in each step "
+          f"{[round(x, 2) for x in step_peak]} GiB")
+    print(f"[train] checkpoint {ckpt_bytes / 1e9:.3f} GB of .npz in "
+          f"{t_ckpt:.2f} s (the loop's time less its steps and batches)")
+    want = {"recflash_sls_grouped": TRAIN_STEPS,
+            "dot_interaction_fused": TRAIN_STEPS, "recflash_sls": 0,
+            "dot_interaction": 0}
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses} are not finite")
+
+    params, opt_state, _ = state
+    batch = batch_fn(TRAIN_STEPS)
+    parts: dict[str, list[float]] = {"forward": [], "backward": [],
+                                     "optimizer": []}
+    peaks: dict[str, float] = {}
+
+    def mark(part: str, t_begin: float) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        parts[part].append(t - t_begin)
+        peaks[part] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        return t
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
+        loss = loss_fn(tree.unflatten(params, leaves), batch)
+        t = mark("forward", t)
+        grads = torch.autograd.grad(loss, leaves)
+        t = mark("backward", t)
+        new = opt.update(tree.unflatten(params, list(grads)), opt_state,
+                         params)
+        mark("optimizer", t)
+        del leaves, loss, grads, new
+    print("[train] step breakdown, median of 3 (host clock, synchronised): "
+          + ", ".join(f"{k} {_median(v) * 1e3:.2f} ms"
+                      for k, v in parts.items())
+          + "; peak device memory in each: "
+          + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()))
+
+    leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
+    p = tree.unflatten(params, leaves)
+    reset_counts()
+    loss = loss_fn(p, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    if read_counts()["recflash_sls_grouped"] != 1:
+        raise AssertionError("the gradient check did not run the kernels")
+    plain = loss_fn(p, batch, plain=True)
+    compare("train loss through the Functions vs the plain-routed loss",
+            loss.detach(), plain.detach(), LOSS_TOL)
+    grad_err = check_tensors("train gradients through the Functions vs "
+                             "autograd of the plain-routed forward", grads,
+                             torch.autograd.grad(plain, leaves))
+    return dict(launches=launches, step_ms=_median(warm) * 1e3,
+                peak_gib=peak / 2**30, ckpt_gb=ckpt_bytes / 1e9,
+                ckpt_s=t_ckpt, grad_err=grad_err,
+                parts_ms={k: _median(v) * 1e3 for k, v in parts.items()})
+
+
+def phase_resume() -> None:
+    """At small_dlrm on the card: a TrainLoop crashed after 7 steps and
+    resumed to step 20 against an uninterrupted one (the reference's
+    tests/test_runtime.py case). index_add_ adds with atomics on the card,
+    so the two runs agree to rounding (``check_tensors``)."""
+    args = argparse.Namespace(**{**TRAIN, "batch": 64})
+
+    def run(ckpt_dir, fail_after=None):
+        params, opt, loss_fn, batch_fn = train_mod._dlrm_pipeline(args, True)
+        loop = TrainLoop(cfg=LoopConfig(total_steps=20, ckpt_dir=ckpt_dir,
+                                        ckpt_every=5),
+                         step_fn=train_mod.make_step(opt, loss_fn),
+                         batch_fn=batch_fn, fail_after_steps=fail_after)
+        return loop.run((params, opt.init(params),
+                         torch.zeros((), device=TRAIN["device"])))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        ref = run(os.path.join(root, "ref"))
+        crashy = os.path.join(root, "crashy")
+        try:
+            run(crashy, fail_after=7)
+        except StepFailure as e:
+            print(f"[resume] {e}; newest checkpoint: step "
+                  f"{checkpoint.latest_step(crashy)}")
+        else:
+            raise AssertionError("the injected failure did not fire")
+        out = run(crashy)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    worst = check_tensors("small_dlrm state after crash at 7 and resume to "
+                          "20 vs an uninterrupted run", tree.leaves(out),
+                          tree.leaves(ref))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(out), tree.leaves(ref), strict=True))
+    print(f"[resume] final loss {float(out[2]):.6f} (uninterrupted "
+          f"{float(ref[2]):.6f}); bitwise equal: {same}; max abs diff "
+          f"{worst:.3e}")
+
+
+def phase_cli() -> None:
+    """``python -m repro_torch.launch.train`` on the card as the
+    reference's tests/test_launch.py drives ``repro.launch.train``: 30
+    steps, then 40 on the same checkpoint directory, which resumes at 30."""
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    try:
+        outs = []
+        for steps in (30, 40):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--model",
+                 "dlrm", "--steps", str(steps), "--batch", "64",
+                 "--ckpt-every", "10", "--ckpt-dir", ckpt_dir], env=env,
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            for line in r.stdout.splitlines():
+                print(f"[cli --steps {steps}] {line}")
+            if r.returncode:
+                raise AssertionError(f"the training CLI failed:\n"
+                                     f"{r.stderr[-3000:]}")
+            print(f"[cli --steps {steps}] {time.perf_counter() - t0:.1f} s "
+                  f"in all")
+            outs.append(r.stdout)
+        resumed_at = checkpoint.latest_step(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not ("final loss" in outs[0] and outs[0].count("\nstep ") == 3
+            and "final loss" in outs[1] and outs[1].count("\nstep ") == 1
+            and resumed_at == 40):
+        raise AssertionError("the CLI did not train 30 steps and then resume "
+                             "for 10 more")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_build()
     err = phase_check(gen)
     res, launches = phase_serve()
+    retrieval = phase_retrieval(res)
     records = phase_time(res, launches, err)
     phase_profile(res)
     check_report(res)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train()
+    phase_resume()
+    phase_cli()
+    by_path = {"serve": launches, "train": train["launches"],
+               "retrieval": retrieval["launches"]}
+    for r in records:
+        for e in [r, *r["entries"]]:
+            name = e["entry"] if e["entry"] in COUNTERS else e["name"]
+            e["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
+            e["launches"] = sum(e["launches_by_path"].values())
     for r in records:
         for e in [r, *r["entries"]]:
             yard = (f"library {e['library_ms'] * 1e3:.2f} us"
                     if e["library_ms"] is not None else
                     f"yardstick {e['yardstick_ms'] * 1e3:.2f} us")
             print(f"[time] {e['name']} ({e['entry']}): {e['ms'] * 1e3:.2f} "
-                  f"us/launch, {e['launches']} launches (plain "
+                  f"us/launch, launches {e['launches_by_path']} (plain "
                   f"{e['plain_ms'] * 1e3:.2f} us, {yard}, bound "
                   f"{e['bound_ms'] * 1e3:.3f} us by {e['bound_by']}) on "
                   f"{card}")
+    print(f"[train] on {card}: warm step {train['step_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in train["parts_ms"].items())
+          + f"), peak {train['peak_gib']:.2f} GiB, checkpoint "
+          f"{train['ckpt_gb']:.3f} GB in {train['ckpt_s']:.2f} s; retrieval "
+          f"{retrieval['ms']:.3f} ms per 1 x {N_CANDIDATES} call")
+    print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ two entries:
 The source's note says what bounds the kernel and how it is laid out. On a
 CPU tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA
 tensor it launches the kernel on the current stream or raises.
+
+``DotInteractionFused`` gives the fused entry a gradient. The TPU kernel
+has none (the reference differentiates its plain einsum), so the backward
+is plain PyTorch on both devices: ``dot_interaction_fused_backward``.
 """
 
 from __future__ import annotations
@@ -111,6 +115,43 @@ def dot_interaction_fused(bottom_out: torch.Tensor,
             out, t, d, fused=True)
     dot_interaction_fused.launches += 1
     return out
+
+
+def dot_interaction_fused_backward(grad: torch.Tensor, bottom_out: torch.Tensor,
+                                   bags: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of ``dot_interaction_fused`` with respect to its inputs.
+
+    ``grad`` (B, D + T(T-1)/2) is split into the gradient of ``bottom_out``
+    (its first D columns) and of the upper-triangle dots, which go into a
+    (B, T, T) matrix S; then dz = (S + S^T) z for z = [bottom_out; bags],
+    ``d_bottom = grad[:, :D] + dz[:, 0]`` and ``d_bags = dz[:, 1:]``.
+    """
+    b, d = bottom_out.shape
+    t = bags.shape[1] + 1
+    z = torch.cat([bottom_out[:, None, :], bags], dim=1).to(grad.dtype)
+    iu, ju = torch.triu_indices(t, t, 1, device=grad.device)
+    s = grad.new_zeros((b, t, t))
+    s[:, iu, ju] = grad[:, d:]
+    dz = torch.bmm(s + s.transpose(1, 2), z)
+    return ((grad[:, :d] + dz[:, 0]).to(bottom_out.dtype),
+            dz[:, 1:].to(bags.dtype))
+
+
+class DotInteractionFused(torch.autograd.Function):
+    """``dot_interaction_fused`` with a gradient: ``apply(bottom_out,
+    bags)``. The forward is the entry itself (the kernel on a CUDA tensor,
+    the plain version on a CPU tensor); the backward is
+    ``dot_interaction_fused_backward``, plain PyTorch on both devices."""
+
+    @staticmethod
+    def forward(ctx, bottom_out, bags):
+        ctx.save_for_backward(bottom_out, bags)
+        return dot_interaction_fused(bottom_out, bags)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return dot_interaction_fused_backward(grad, *ctx.saved_tensors)
 
 
 dot_interaction.launches = 0         # kernel launches since the last reset

@@ -3,14 +3,23 @@ and the grouped and fused entries the port's forward takes.
 
 On a CUDA tensor each op launches its hand-written kernel; on a CPU tensor
 it runs the kernel's plain version. There is no fallback between the two.
+The grouped and fused entries take their ``autograd.Function`` when a
+gradient is wanted (grad mode on and an input that requires one), so that
+a training step differentiates through the kernels; otherwise, as under
+``torch.no_grad`` or ``torch.inference_mode``, they call the kernel's
+wrapper directly.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.dot_interaction import DotInteractionFused
 from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
 from repro_torch.kernels.dot_interaction import (
     dot_interaction_fused as _fused_kernel)
+from repro_torch.kernels.recflash_sls import RecFlashSLSGrouped
 from repro_torch.kernels.recflash_sls import recflash_sls as _sls_kernel
 from repro_torch.kernels.recflash_sls import (
     recflash_sls_grouped as _grouped_kernel)
@@ -27,6 +36,9 @@ def recflash_sls_grouped(tables, hot_sizes, indices, rank_of=None,
     """Two-tier SLS of all tables in one launch: stored tables split at
     ``hot_sizes``, indices (B, n_tables, L) int32 logical ids translated by
     ``rank_of`` (or ranks) -> (B, n_tables, D) float32 bag sums."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return RecFlashSLSGrouped.apply(hot_sizes, indices, rank_of, desc,
+                                        *tables)
     return _grouped_kernel(tables, hot_sizes, indices, rank_of, desc)
 
 
@@ -38,6 +50,9 @@ def dot_interaction(z, block_b: int = 64):
 def dot_interaction_fused(bottom_out, bags):
     """DLRM top-MLP input: bottom_out (B,D), bags (B,T-1,D) ->
     (B, D + T*(T-1)/2), ``bottom_out`` then the upper-triangle dots."""
+    if torch.is_grad_enabled() and (bottom_out.requires_grad
+                                    or bags.requires_grad):
+        return DotInteractionFused.apply(bottom_out, bags)
     return _fused_kernel(bottom_out, bags)
 
 

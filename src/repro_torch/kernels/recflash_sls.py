@@ -16,6 +16,11 @@ The source's note says what bounds the kernel and how it serves the hot
 tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
 tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA tensor
 it launches the kernel on the current stream or raises.
+
+``RecFlashSLSGrouped`` gives the grouped entry a gradient for each stored
+table. The TPU kernel has none (the reference differentiates its plain
+``jnp.take`` bags), so the backward is plain PyTorch on both devices:
+``recflash_sls_grouped_backward``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.embedding.layout import lookup
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import recflash_sls_grouped_ref, recflash_sls_ref
 
@@ -204,6 +210,62 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
             desc.vec)
     recflash_sls_grouped.launches += 1
     return out
+
+
+def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
+                                  rank_of=None, needs=None) -> list:
+    """Gradient of the grouped SLS with respect to each stored table.
+
+    ``grad`` (B, n_tables, D) is the gradient of the bags; ``n_rows`` the
+    stored tables' row counts; ``indices`` and ``rank_of`` the forward's.
+    Returns per table a dense (V_t, D) tensor in ``grad``'s dtype: zeros,
+    then each bag's gradient added at the rank of each of its lookups
+    (``index_add_``), which is the dense gradient ``jax.grad`` gives through
+    ``jnp.take``. A table whose ``needs`` entry is False gets None.
+    """
+    b, _, n_lk = indices.shape
+    d = grad.shape[2]
+    out = []
+    for t, v in enumerate(n_rows):
+        if needs is not None and not needs[t]:
+            out.append(None)
+            continue
+        idx = indices[:, t, :]
+        if rank_of is not None:
+            idx = lookup(rank_of[t], idx)
+        g = torch.zeros((v, d), dtype=grad.dtype, device=grad.device)
+        g.index_add_(0, idx.reshape(-1),
+                     grad[:, t, None, :].expand(b, n_lk, d).reshape(-1, d))
+        out.append(g)
+    return out
+
+
+class RecFlashSLSGrouped(torch.autograd.Function):
+    """``recflash_sls_grouped`` with a gradient for each stored table:
+    ``apply(hot_sizes, indices, rank_of, desc, *tables)``.
+
+    The forward is the entry itself (the kernel on a CUDA tensor, the plain
+    version on a CPU tensor); the backward is
+    ``recflash_sls_grouped_backward``, plain PyTorch on both devices.
+    """
+
+    @staticmethod
+    def forward(ctx, hot_sizes, indices, rank_of, desc, *tables):
+        ctx.save_for_backward(indices)
+        ctx.rank_of = rank_of
+        ctx.meta = [(t.shape[0], t.dtype) for t in tables]
+        return recflash_sls_grouped(list(tables), hot_sizes, indices, rank_of,
+                                    desc)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        grads = recflash_sls_grouped_backward(
+            grad, [v for v, _ in ctx.meta], indices, ctx.rank_of,
+            ctx.needs_input_grad[4:])
+        return (None, None, None, None,
+                *[g if g is None else g.to(dt)
+                  for g, (_, dt) in zip(grads, ctx.meta, strict=True)])
 
 
 recflash_sls.launches = 0           # kernel launches since the last reset

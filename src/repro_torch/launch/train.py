@@ -1,0 +1,192 @@
+"""Training entry point: the DLRM pipeline of ``repro.launch.train`` on torch.
+
+Trains the DLRM on synthetic CTR data with the fault-tolerant ``TrainLoop``
+(atomic checkpoints, resume from the newest one, straggler hook) on one
+device: the card by default (``--device cuda`` raises without one),
+``--device cpu`` for the kernels' plain versions. It is the paper's offline
+phase and training stage (Fig. 8): a sampled sweep counts row accesses, the
+tables are stored in access-frequency order (AF remap), and each step's
+forward runs through the port's two kernels (one grouped SLS, one fused
+interaction) and its backward through their ``autograd.Function``s. Tables
+take row-wise adagrad, the MLPs AdamW. Flags, batches and output lines are
+the reference's; the batches are the same numbers for the same seed.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model dlrm \\
+        --steps 200 --batch 256 --ckpt-dir /path/to/ckpt
+
+``--model lm`` waits for the port of ``models/lm.py`` (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import optim, tree
+from repro_torch.configs import DLRMConfig, small_dlrm
+from repro_torch.device import resolve_device
+from repro_torch.runtime import LoopConfig, TrainLoop
+
+
+def _dlrm_pipeline(args, remap: bool, cfg: DLRMConfig | None = None):
+    """Returns (params, opt, loss_fn, batch_fn) for DLRM training of ``cfg``
+    (default ``small_dlrm()``) on ``args.device``.
+
+    ``loss_fn(p, batch, plain=False)`` attaches the remap to ``p`` on every
+    call, since the grouped SLS kernel's table descriptors name the tables'
+    storage and the optimizer returns new tables each step; ``plain=True``
+    routes the forward through the kernels' plain versions (the oracle).
+    """
+    import repro_torch.models.dlrm as dlrm
+    from repro_torch.core.freq import AccessStats
+    from repro_torch.data.tracegen import generate_sls_batch
+    from repro_torch.embedding.layout import RemapSpec, remap_table
+
+    cfg = small_dlrm() if cfg is None else cfg
+    device = resolve_device(args.device)
+    params = dlrm.init(args.seed, cfg, device=device)
+
+    # offline phase (paper Fig. 8): sampled sweep -> AF remap of the tables
+    rank_ofs = hot_sizes = None
+    if remap:
+        tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0],
+                                      cfg.lookups, 512, k=0.0,
+                                      seed=args.seed + 1)
+        specs = []
+        for t in range(cfg.n_tables):
+            counts = AccessStats.from_trace(rows[tb == t],
+                                            cfg.n_rows[0]).counts
+            specs.append(RemapSpec.from_counts(counts))
+        tables = params["tables"]
+        for t, spec in enumerate(specs):      # one logical copy at a time
+            tables[t] = remap_table(tables[t], spec)
+        hot_sizes = [s.hot_size for s in specs]
+        # checked and made int32 on the device once, here
+        rank_ofs = dlrm.add_remap(params, [s.rank_of for s in specs],
+                                  hot_sizes)["rank_of"]
+
+    opt = optim.partitioned(
+        lambda ks: "table" if "tables" in ks else "dense",
+        {"table": optim.adagrad(args.lr_table, rowwise=True),
+         "dense": optim.adamw(args.lr)})
+
+    def batch_fn(step):
+        rng = np.random.default_rng(args.seed * 100_000 + step)
+        tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0],
+                                      cfg.lookups, args.batch, k=0.0,
+                                      seed=step)
+        idx = rows.reshape(args.batch, cfg.n_tables, cfg.lookups)
+        dense = rng.normal(size=(args.batch, cfg.n_dense)) \
+            .astype(np.float32)
+        # synthetic CTR: clicks correlate with dense feature 0
+        labels = (dense[:, 0] + rng.normal(scale=0.5, size=args.batch)
+                  > 0.5).astype(np.float32)
+        return {"dense": torch.from_numpy(dense).to(device),
+                "indices": torch.from_numpy(idx.astype(np.int32)).to(device),
+                "labels": torch.from_numpy(labels).to(device)}
+
+    def loss_fn(p, batch, plain=False):
+        pp = dlrm.add_remap(p, rank_ofs, hot_sizes) if remap else p
+        return dlrm.loss(pp, batch, cfg, plain)
+
+    return params, opt, loss_fn, batch_fn
+
+
+def make_step(opt, loss_fn):
+    """``step(state, batch) -> state`` for state ``(params, opt_state,
+    loss)``: the loss and its gradient with respect to every parameter
+    (the reference's ``jax.value_and_grad``), then the optimizer update."""
+
+    def step_fn(state, batch):
+        params, opt_state, _ = state
+        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        loss = loss_fn(tree.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        params, opt_state = opt.update(tree.unflatten(params, list(grads)),
+                                       opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return step_fn
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--model", choices=("dlrm", "lm"), default="dlrm")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--lr-table", type=float, default=0.02)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--no-remap", action="store_true",
+                    help="disable the RecFlash AF table remap (baseline)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.model == "lm":
+        print("--model lm: the LM pipeline waits for the port of "
+              "models/lm.py (ROADMAP A13)", file=sys.stderr)
+        return 2
+    params, opt, loss_fn, batch_fn = _dlrm_pipeline(
+        args, remap=not args.no_remap)
+
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    print(f"model={args.model} params={n_params/1e6:.1f}M devices=1")
+
+    step_fn = make_step(opt, loss_fn)
+    losses = []
+    t_start = time.time()
+
+    def metrics_hook(step, state):
+        losses.append(float(state[2]))
+        if (step + 1) % args.log_every == 0:
+            dt = time.time() - t_start
+            print(f"step {step + 1:5d}  loss {losses[-1]:.4f}  "
+                  f"({dt / (step + 1):.3f}s/step)", flush=True)
+
+    loop = TrainLoop(
+        cfg=LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                       ckpt_every=args.ckpt_every),
+        step_fn=step_fn, batch_fn=batch_fn,
+        on_straggler=lambda s, dt, med: print(
+            f"[straggler] step {s}: {dt:.2f}s vs median {med:.2f}s"))
+
+    device = tree.leaves(params)[0].device
+    # the loop gets the only reference to the initial state (popped into the
+    # call), so that the initial tables die after the first step instead of
+    # staying alive beside every later state
+    init = [(params, opt.init(params), torch.zeros((), device=device))]
+    del params
+    orig_attempt = loop._attempt
+
+    def attempt_and_log(state, batch):
+        out = orig_attempt(state, batch)
+        metrics_hook(len(losses), out)
+        return out
+
+    loop._attempt = attempt_and_log
+    state = loop.run(init.pop())
+    print(f"final loss {float(state[2]):.4f} after {args.steps} steps "
+          f"in {time.time() - t_start:.1f}s")
+    if len(losses) > 20:
+        first = np.mean(losses[:10])
+        last = np.mean(losses[-10:])
+        print(f"loss first10={first:.4f} last10={last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

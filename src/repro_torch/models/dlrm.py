@@ -4,7 +4,7 @@ dense features -> bottom MLP -> d-dim vector; each sparse field -> SLS
 (embedding-bag sum) -> d-dim vector; pairwise-dot interaction over the
 (n_tables + 1) vectors; concat [bottom_out, interactions] -> top MLP -> CTR
 logit. Port of ``repro.models.dlrm`` (``init``, ``interact``, ``forward``,
-``add_remap``; the mesh branches wait).
+``loss``, ``add_remap``, ``retrieval_score``; the mesh branches wait).
 
 Unlike the reference forward, which takes bags with ``jnp.take`` and the
 interaction with an einsum, this forward routes both through the port's
@@ -15,6 +15,11 @@ interaction writes the top-MLP input. The function is the same; the sums
 differ only in their order. ``plain=True`` routes them through the kernels'
 plain versions instead (the oracle on the card). The MLPs stay
 ``torch.matmul``, as the reference leaves them to XLA.
+
+When a gradient is wanted (grad mode on and parameters that require one),
+both launches go through their ``autograd.Function`` (``kernels.ops``):
+the forward is still the kernel, the backward plain PyTorch, and each stored
+table gets the dense (V, D) gradient ``jax.grad`` gives the reference.
 """
 
 from __future__ import annotations
@@ -79,8 +84,10 @@ def _bag(params, indices: torch.Tensor, t: int,
     else:
         idx = indices.to(torch.int32).contiguous()
         hot = 1
-    sls = ref.recflash_sls_ref if plain else ops.recflash_sls
-    return sls(stored[:hot], stored[hot:], idx)
+    if plain:
+        return ref.recflash_sls_ref(stored[:hot], stored[hot:], idx)
+    # block_b only constrains B on the TPU; the CUDA kernel takes any B
+    return ops.recflash_sls(stored[:hot], stored[hot:], idx, block_b=1)
 
 
 def bags(params, indices: torch.Tensor, plain: bool = False
@@ -111,20 +118,58 @@ def forward(params, batch, cfg: DLRMConfig, plain: bool = False
     return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
 
+def loss(params, batch, cfg: DLRMConfig, plain: bool = False
+         ) -> torch.Tensor:
+    """Mean binary cross-entropy of the CTR logits against ``labels``,
+    written as the reference writes it (``max(l, 0) - l*y +
+    log1p(exp(-|l|))``), not as ``F.binary_cross_entropy_with_logits``,
+    whose rounding differs."""
+    logits = forward(params, batch, cfg, plain)
+    y = batch["labels"]
+    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
+                      - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def retrieval_score(params, batch, cfg: DLRMConfig, plain: bool = False
+                    ) -> torch.Tensor:
+    """Score 1 user against N candidates (the retrieval_cand shape).
+
+    batch: dense (1, n_dense), indices (1, n_tables, lookups), candidates
+    (N,) logical ids of the last table. The user's dense path and fixed
+    fields are computed once: one grouped SLS launch over every table (its
+    last bag dropped). The candidates' field is one per-table SLS launch of
+    (N, 1) bags, after the rank_of gather. Then one fused interaction over
+    the N rows, the user's bottom output broadcast (stride 0), and the top
+    MLP. Returns (N,) logits.
+    """
+    x = mlp(params["bot"], batch["dense"])                       # (1, D)
+    fixed = bags(params, batch["indices"], plain)[:, :-1]         # (1, T-1, D)
+    cand = _bag(params, batch["candidates"][:, None], cfg.n_tables - 1,
+                plain)                                           # (N, D)
+    n = cand.shape[0]
+    all_bags = torch.cat([fixed.expand(n, -1, -1), cand[:, None, :]], dim=1)
+    feat = interact(x.expand(n, -1), all_bags, cfg.interaction, plain)
+    return mlp(params["top"], feat)[:, 0]                        # (N,)
+
+
 def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     """Attach per-table logical->rank hash tables (RecFlash layout) and the
     hot size that splits each stored table into its two tiers.
 
     ``rank_ofs`` are (V,) arrays or tensors, kept as int32 on the tables'
     device; ``hot_sizes`` defaults to 1 per table. Also builds the grouped
-    SLS kernel's table descriptors (``sls_desc``), once; the kernel's
-    wrapper refuses them after a table, hot size or rank_of is replaced.
+    SLS kernel's table descriptors (``sls_desc``); the kernel's wrapper
+    refuses them after a table, hot size or rank_of is replaced, so a
+    training step, whose optimizer returns new tables, calls this every
+    step. An int32 tensor is taken as it is: it cannot be out of range, and
+    checking a wider one reads its maximum back from the device.
     """
     device = params["tables"][0].device
     rank_of = []
     for r in rank_ofs:
         r = torch.as_tensor(r)
-        if r.numel() and int(r.max()) >= 2**31:
+        if r.dtype != torch.int32 and r.numel() and int(r.max()) >= 2**31:
             raise ValueError("rank_of does not fit in int32")
         rank_of.append(r.to(device=device, dtype=torch.int32).contiguous())
     hot = [1] * len(rank_of) if hot_sizes is None else list(map(int,

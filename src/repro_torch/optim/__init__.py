@@ -1,0 +1,207 @@
+"""Optimizers on torch tensors, functional (port of ``repro.optim``).
+
+``sgd``, ``adamw``, ``adagrad`` (with a **row-wise** mode for embedding
+tables: one accumulator per row, the usual memory saving for 10^6..10^9-row
+tables), ``adafactor`` (factored second moments) and ``partitioned``.
+
+API: ``opt.init(params) -> state``; ``opt.update(grads, state, params) ->
+(new_params, new_state)``. Params, grads and state are trees of tensors
+(``repro_torch.tree``); ``update`` returns new tensors and changes none of
+its arguments, as the reference's pure functions do. The arithmetic is the
+reference's, in its order: ``adamw``'s bias corrections are f32 tensors
+(``b1 ** t`` with ``t`` an int32 0-d tensor), and ``adagrad`` steps by
+``p - lr * g * scale``.
+
+The reference's ``Optimizer.state_specs`` (PartitionSpecs of ``adafactor``'s
+factored state on a mesh) waits for the port's DeviceMesh (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import tree
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], tuple]
+
+
+def _step_counter(params) -> torch.Tensor:
+    """A 0-d int32 zero on the params' device (the first leaf's)."""
+    flat = tree.leaves(params)
+    device = flat[0].device if flat else torch.device("cpu")
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree.tree_map(torch.zeros_like, params)
+
+    def update(grads, state, params):
+        if momentum == 0.0:
+            return tree.tree_map(lambda p, g: p - lr * g, params, grads), ()
+        vel = tree.tree_map(lambda v, g: momentum * v + g, state, grads)
+        return tree.tree_map(lambda p, v: p - lr * v, params, vel), vel
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    def init(params):
+        return {"m": tree.tree_map(torch.zeros_like, params),
+                "v": tree.tree_map(torch.zeros_like, params),
+                "t": _step_counter(params)}
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        m = tree.tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g,
+                          state["m"], grads)
+        v = tree.tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g,
+                          state["v"], grads)
+        bc1 = 1 - b1 ** t.to(torch.float32)
+        bc2 = 1 - b2 ** t.to(torch.float32)
+
+        def step(p, m_, v_):
+            upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            return p - lr * (upd + weight_decay * p)
+
+        return (tree.tree_map(step, params, m, v),
+                {"m": m, "v": v, "t": t})
+
+    return Optimizer(init, update)
+
+
+def adagrad(lr: float, eps: float = 1e-10,
+            rowwise: bool = False) -> Optimizer:
+    """DLRM-style adagrad. ``rowwise`` keeps one accumulator per table row
+    (mean over the embedding dim), cutting optimizer memory D-fold.
+
+    The update is dense, as the reference's: every row of a table is
+    rewritten each step (rows with a zero gradient keep their values). The
+    leaves are updated one at a time, so a leaf's temporaries are freed
+    before the next leaf's are made.
+    """
+
+    def init(params):
+        if rowwise:
+            return tree.tree_map(
+                lambda p: torch.zeros(p.shape[:1] if p.ndim == 2 else p.shape,
+                                      dtype=torch.float32, device=p.device),
+                params)
+        return tree.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+    def update(grads, state, params):
+        new_params, new_state = [], []
+        for p, g, a in zip(tree.leaves(params),
+                           tree.flatten_up_to(params, grads),
+                           tree.flatten_up_to(params, state), strict=True):
+            g32 = g.to(torch.float32)
+            if rowwise and p.ndim == 2:
+                a_new = a + (g32 ** 2).mean(-1)
+                scale = torch.rsqrt(a_new + eps)[:, None]
+            else:
+                a_new = a + g32 ** 2
+                scale = torch.rsqrt(a_new + eps)
+            del g32
+            new_params.append(p - lr * g * scale.to(p.dtype))
+            new_state.append(a_new)
+        return (tree.unflatten(params, new_params),
+                tree.unflatten(params, new_state))
+
+    return Optimizer(init, update)
+
+
+def adafactor(lr: float, eps: float = 1e-30,
+              min_dim_factored: int = 128,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second moments for >=2D params (rows+cols accumulators)."""
+
+    def _factored(p):
+        return p.ndim >= 2 and min(p.shape[-2:]) >= min_dim_factored
+
+    def init(params):
+        def one(p):
+            if _factored(p):
+                return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                         device=p.device),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                         dtype=torch.float32,
+                                         device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+
+        return {"s": tree.tree_map(one, params), "t": _step_counter(params)}
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        beta = 1.0 - (t.to(torch.float32) + 1.0) ** -0.8
+
+        def one(p, g, s):
+            g32 = g.to(torch.float32)
+            g2 = g32 * g32 + eps
+            if "r" in s:
+                r = beta * s["r"] + (1 - beta) * g2.mean(-1)
+                c = beta * s["c"] + (1 - beta) * g2.mean(-2)
+                denom = r[..., None] * c[..., None, :] \
+                    / torch.clamp_min(r.mean(-1, keepdim=True), eps)[..., None]
+                upd = g32 * torch.rsqrt(denom + eps)
+                new_s = {"r": r, "c": c}
+            else:
+                v = beta * s["v"] + (1 - beta) * g2
+                upd = g32 * torch.rsqrt(v + eps)
+                new_s = {"v": v}
+            rms = torch.sqrt(torch.mean(upd * upd) + eps)
+            upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
+            return (p - lr * upd).to(p.dtype), new_s
+
+        outs = [one(p, g, s) for p, g, s in zip(
+            tree.leaves(params), tree.flatten_up_to(params, grads),
+            tree.flatten_up_to(params, state["s"]), strict=True)]
+        return (tree.unflatten(params, [o[0] for o in outs]),
+                {"s": tree.unflatten(params, [o[1] for o in outs]), "t": t})
+
+    return Optimizer(init, update)
+
+
+def partitioned(label_fn: Callable[[str], str],
+                opts: dict[str, Optimizer]) -> Optimizer:
+    """Route each param to an optimizer by path label (e.g. embedding tables
+    -> row-wise adagrad, dense weights -> adamw).
+
+    ``label_fn`` receives the leaf's path string (``jax.tree_util.keystr``'s,
+    e.g. ``['tables'][0]``) and must return a key of ``opts``. Each group is
+    handled as a flat {path: leaf} dict, so any Optimizer composes.
+    """
+
+    def _split(t):
+        groups: dict[str, dict[str, Any]] = {k: {} for k in opts}
+        for path, leaf in tree.flatten_with_path(t):
+            groups[label_fn(path)][path] = leaf
+        return groups
+
+    def init(params):
+        groups = _split(params)
+        return {k: opts[k].init(groups[k]) for k in opts}
+
+    def update(grads, state, params):
+        pg, gg = _split(params), _split(grads)
+        merged: dict[str, Any] = {}
+        new_state = {}
+        for k, opt in opts.items():
+            upd, st = opt.update(gg[k], state[k], pg[k])
+            new_state[k] = st
+            merged.update(upd)
+        return (tree.unflatten(params, [merged[path] for path, _ in
+                                        tree.flatten_with_path(params)]),
+                new_state)
+
+    return Optimizer(init, update)

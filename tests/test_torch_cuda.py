@@ -218,3 +218,101 @@ def test_forward_kernels_vs_plain(gen):
     torch.testing.assert_close(got,
                                dlrm.forward(params, batch, cfg, plain=True),
                                rtol=1e-4, atol=1e-5)
+
+
+# gradients through the Functions (kernel forward, plain backward) against
+# autograd of the plain versions: the same sums in other orders, plus
+# index_add_'s atomics on the card; each tensor is held to a fraction of
+# its own largest entry
+GRAD_RTOL = 1e-4
+
+
+def _close_grads(got, want):
+    for a, b in zip(got, want, strict=True):
+        torch.testing.assert_close(
+            a, b, rtol=GRAD_RTOL, atol=1e-5 * float(b.abs().max()))
+
+
+class TestGradientsOnCard:
+    @pytest.mark.parametrize("shape", ["small", "dlrm-rm2"])
+    def test_sls_grouped_function(self, gen, shape):
+        rows, hot, b, lk = ((64, 100, 130), (1, 17, 129), 16, 20) \
+            if shape == "small" else ((1_000_000,) * 26, (2000,) * 26,
+                                      4096, 80)
+        tables, rank_of, idx = _group(gen, rows, 64, hot, b, lk)
+        for t in tables:
+            t.requires_grad_()
+        g = torch.randn(b, len(rows), 64, generator=gen, device="cuda")
+        before = recflash_sls_grouped.launches
+        got = torch.autograd.grad(
+            ops.recflash_sls_grouped(tables, hot, idx, rank_of), tables, g)
+        assert recflash_sls_grouped.launches == before + 1
+        want = torch.autograd.grad(
+            ops.sls_grouped_ref(tables, hot, idx, rank_of), tables, g)
+        _close_grads(got, want)
+
+    @pytest.mark.parametrize("b,t,d", [(64, 9, 16), (4096, 27, 64)])
+    def test_dot_interaction_fused_function(self, gen, b, t, d):
+        x = torch.randn(b, d, generator=gen, device="cuda",
+                        requires_grad=True)
+        bags = torch.randn(b, t - 1, d, generator=gen, device="cuda",
+                           requires_grad=True)
+        g = torch.randn(b, d + t * (t - 1) // 2, generator=gen,
+                        device="cuda")
+        before = dot_interaction_fused.launches
+        got = torch.autograd.grad(ops.dot_interaction_fused(x, bags),
+                                  (x, bags), g)
+        assert dot_interaction_fused.launches == before + 1
+        want = torch.autograd.grad(ops.fused_ref(x, bags), (x, bags), g)
+        _close_grads(got, want)
+
+    def test_loss_gradients_vs_plain(self, gen):
+        cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
+                         n_rows=(500,) * 3, lookups=4, bot_mlp=(32, 16),
+                         top_mlp=(32,))
+        params = dlrm.init(0, cfg, device="cuda")
+        leaves = [p for p in params["tables"]] + [
+            v for layer in params["bot"] + params["top"]
+            for v in layer.values()]
+        for p in leaves:
+            p.requires_grad_()
+        perm = [torch.randperm(500, generator=gen, device="cuda")
+                for _ in range(cfg.n_tables)]
+        pp = dlrm.add_remap(params, [p.argsort().to(torch.int32)
+                                     for p in perm], [5, 50, 499])
+        batch = {"dense": torch.randn(16, 13, generator=gen, device="cuda"),
+                 "indices": torch.randint(0, 500, (16, 3, 4), generator=gen,
+                                          device="cuda", dtype=torch.int32),
+                 "labels": (torch.rand(16, generator=gen, device="cuda")
+                            > 0.5).float()}
+        loss = dlrm.loss(pp, batch, cfg)
+        plain = dlrm.loss(pp, batch, cfg, plain=True)
+        torch.testing.assert_close(loss, plain, rtol=1e-5, atol=1e-6)
+        _close_grads(torch.autograd.grad(loss, leaves),
+                     torch.autograd.grad(plain, leaves))
+
+
+def test_retrieval_score_vs_plain(gen):
+    cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
+                     n_rows=(500,) * 3, lookups=4, bot_mlp=(32, 16),
+                     top_mlp=(32,))
+    perm = [torch.randperm(500, generator=gen, device="cuda")
+            for _ in range(cfg.n_tables)]
+    params = dlrm.add_remap(dlrm.init(0, cfg, device="cuda"),
+                            [p.argsort() for p in perm], [5, 50, 499])
+    batch = {"dense": torch.randn(1, 13, generator=gen, device="cuda"),
+             "indices": torch.randint(0, 500, (1, 3, 4), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+             "candidates": torch.randint(0, 500, (1001,), generator=gen,
+                                         device="cuda", dtype=torch.int32)}
+    counts = (recflash_sls_grouped.launches, dot_interaction_fused.launches,
+              recflash_sls.launches, dot_interaction.launches)
+    with torch.inference_mode():
+        got = dlrm.retrieval_score(params, batch, cfg)
+    assert (recflash_sls_grouped.launches, dot_interaction_fused.launches,
+            recflash_sls.launches, dot_interaction.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
+    assert got.shape == (1001,)
+    torch.testing.assert_close(
+        got, dlrm.retrieval_score(params, batch, cfg, plain=True),
+        rtol=1e-4, atol=1e-5)

@@ -98,6 +98,41 @@ class TestForwardParity:
             np.asarray(jbf["tables"][0], np.float32))
 
 
+class TestRetrievalScore:
+    # the forward's tolerance: bag sums and Gram dots in two orders
+    TOL = dict(rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("n", [40, 13])
+    def test_matches_reference(self, n):
+        jcfg, tcfg = jdlrm.DLRMConfig(**TINY), configs.DLRMConfig(**TINY)
+        params = jdlrm.init(jax.random.PRNGKey(4), jcfg)
+        counts = np.random.default_rng(9).integers(0, 30, (3, 500))
+        specs = [JaxRemapSpec.from_counts(c, hot_size=20) for c in counts]
+        params["tables"] = [jax_remap_table(t, s)
+                            for t, s in zip(params["tables"], specs,
+                                            strict=True)]
+        rng = np.random.default_rng(10)
+        dense = rng.standard_normal((1, 13)).astype(np.float32)
+        idx = rng.integers(0, 500, (1, 3, 4)).astype(np.int32)
+        cand = rng.integers(0, 500, n).astype(np.int32)
+        want = jdlrm.retrieval_score(
+            jdlrm.add_remap(params, [s.rank_of for s in specs]),
+            {"dense": jnp.asarray(dense), "indices": jnp.asarray(idx),
+             "candidates": jnp.asarray(cand)}, jcfg)
+        tparams = dlrm.add_remap(
+            from_jax_params(_np_tree(params), device="cpu"),
+            [s.rank_of for s in specs], [s.hot_size for s in specs])
+        tbatch = {"dense": torch.from_numpy(dense),
+                  "indices": torch.from_numpy(idx),
+                  "candidates": torch.from_numpy(cand)}
+        got = dlrm.retrieval_score(tparams, tbatch, tcfg)
+        assert got.shape == (n,) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **self.TOL)
+        np.testing.assert_allclose(
+            dlrm.retrieval_score(tparams, tbatch, tcfg, plain=True).numpy(),
+            got.numpy(), **self.TOL)
+
+
 class TestGroupedBags:
     def _params(self, hot_sizes=(5, 50, 499)):
         cfg = configs.DLRMConfig(**TINY)
@@ -213,6 +248,17 @@ class TestConfigs:
     def test_unknown_arch(self):
         with pytest.raises(KeyError):
             configs.arch_shape("dlrm_huge")
+
+
+def test_add_remap_checks_the_range_of_wide_rank_of():
+    params = dlrm.init(0, configs.DLRMConfig(**TINY), device="cpu")
+    wide = np.arange(500, dtype=np.int64)
+    wide[7] = 2**31
+    with pytest.raises(ValueError, match="int32"):
+        dlrm.add_remap(params, [wide] * 3)
+    narrow = torch.arange(500, dtype=torch.int32)
+    got = dlrm.add_remap(params, [narrow] * 3)
+    assert got["rank_of"][0] is narrow        # taken as it is, no copy
 
 
 def test_add_remap_defaults_to_hot_size_one():

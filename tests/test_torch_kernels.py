@@ -338,5 +338,52 @@ class TestEmbeddingBagDense:
                                     "median")
 
 
+class TestEmbeddingBagRagged:
+    # one f32 sum (or mean, or max) per segment in two orders: the
+    # reference's dense-bag tolerance
+    TOL = dict(rtol=1e-6, atol=1e-6)
+    # 7 bags over 11 ids: bags 1, 4 and 6 are empty (a repeated offset, a
+    # repeated offset, and an offset at the end)
+    OFFSETS = np.array([0, 3, 3, 6, 9, 9, 11], np.int32)
+
+    @pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_matches_reference(self, mode, weighted):
+        rng = np.random.default_rng(8)
+        table = rng.standard_normal((40, 5)).astype(np.float32)
+        idx = rng.integers(0, 40, 11).astype(np.int32)
+        w = rng.random(11).astype(np.float32) if weighted else None
+        seg = jax_bag.offsets_to_segment_ids(jnp.asarray(self.OFFSETS), 11)
+        want = np.asarray(jax_bag.embedding_bag_ragged(
+            jnp.asarray(table), jnp.asarray(idx), seg, 7, mode,
+            None if w is None else jnp.asarray(w)))
+        t_seg = bag.offsets_to_segment_ids(torch.from_numpy(self.OFFSETS), 11)
+        np.testing.assert_array_equal(t_seg.numpy(), np.asarray(seg))
+        got = bag.embedding_bag_ragged(
+            torch.from_numpy(table), torch.from_numpy(idx), t_seg, 7, mode,
+            None if w is None else torch.from_numpy(w)).numpy()
+        np.testing.assert_allclose(got, want, **self.TOL)
+        empty = want[[1, 4, 6]]
+        assert (empty == (-np.inf if mode == "max" else 0.0)).all()
+        np.testing.assert_array_equal(got[[1, 4, 6]], empty)
+
+    def test_offsets_accumulate_repeats(self):
+        for offsets, total in (([0, 3, 4], 6), ([0, 0, 0, 2], 4),
+                               ([0, 2, 2, 5, 5], 5), ([0], 3)):
+            want = jax_bag.offsets_to_segment_ids(
+                jnp.asarray(offsets, jnp.int32), total)
+            got = bag.offsets_to_segment_ids(
+                torch.tensor(offsets, dtype=torch.int32), total)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_unknown_mode(self):
+        with pytest.raises(ValueError):
+            bag.embedding_bag_ragged(torch.zeros(3, 2),
+                                     torch.zeros(1, dtype=torch.int32),
+                                     torch.zeros(1, dtype=torch.int32), 1,
+                                     "median")
+
+
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"
