@@ -41,7 +41,16 @@ Phases, each of which fails the run when it fails:
    ``autograd.Function``s against autograd of the plain-routed forward;
    then, at ``small_dlrm``, a crashed-and-resumed ``TrainLoop`` against an
    uninterrupted one, and the training CLI run and resumed as the
-   reference's tests/test_launch.py drives it.
+   reference's tests/test_launch.py drives it;
+8. sharded: the distributed embedding over NCCL at world size 1 (one card
+   holds one rank): a (1, 1) ("data", "model") mesh, dlrm-rm2 at full
+   width with remap on; a served batch of 64 through the mesh forward
+   three ways (the masked-psum two-phase path, hybrid, hybrid with 2D
+   tables) against the single-device kernel forward, one training step at
+   batch 4096 through the 2D hybrid loss against the single-device step,
+   ``compressed_psum`` on a real gradient against its own quantise and
+   dequantise, and a small_dlrm checkpoint restored onto shardings; the
+   warm steps, the collectives per step by kind and the launches.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -72,6 +81,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import checkpoint, configs, tree  # noqa: E402
 from repro_torch.data.tracegen import generate_sls_batch  # noqa: E402
+from repro_torch.distributed import mesh as dmesh  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    CompressionState, compressed_psum)
+from repro_torch.distributed.shardings import (  # noqa: E402
+    NamedSharding, P, make_param_specs, sync_grads)
 from repro_torch.embedding.layout import lookup  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
@@ -127,7 +141,12 @@ N_CANDIDATES = 1_000_000
 # sum cancels (a bias gradient far below its per-sample terms) keeps the
 # absolute error of those terms, so each gradient tensor is held as a
 # whole: ||got - want|| <= GRAD_REL_L2 * ||want||. The same holds a resumed
-# run's state against an uninterrupted one's (atomics again).
+# run's state against an uninterrupted one's (atomics again). The plain
+# SLS adds each bag's rows in lookup order, as the kernel does
+# (``kernels.ref.sum_in_order``): forwards that round a bag differently can
+# flip a ReLU at its kink, which a cancelling batch sum carries past any
+# such limit (tools/train_grad_probe.py measures it). Both routes are also
+# read against the float64 plain-routed gradient, and printed.
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_REL_L2 = 1e-4
 
@@ -542,7 +561,7 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
              ms=time_ms(recflash_sls_grouped, grouped_calls, reps=20),
              plain_ms=time_ms(ops.sls_grouped_ref,
                               [c[:4] for c in grouped_calls], reps=1,
-                              launches=6 * n_t),
+                              launches=4 * n_t + lk + 2),
              bound_ms=g_bound, bound_by=g_by, library_ms=None,
              library_note="no single PyTorch call translates ids through "
                           "each table's rank_of and sums the two-tier bags "
@@ -558,7 +577,7 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
                  max_abs_err=err["recflash_sls"],
                  ms=time_ms(recflash_sls, sls_calls),
                  plain_ms=time_ms(ops.sls_ref, sls_calls, reps=1,
-                                  launches=4),
+                                  launches=lk + 4),
                  bound_ms=sls_bound, bound_by=sls_by,
                  library_ms=time_ms(
                      lambda i, w: F.embedding_bag(i, w, mode="sum"),
@@ -649,16 +668,20 @@ def _median(xs: list[float]) -> float:
     return sorted(xs)[len(xs) // 2]
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (0 where both are 0)."""
+    err = float(torch.linalg.vector_norm(a.double() - b.double()))
+    ref = float(torch.linalg.vector_norm(b.double()))
+    return err / ref if ref else (0.0 if err == 0 else float("inf"))
+
+
 def check_tensors(label: str, got, want) -> float:
     """Each tensor of ``got`` against its counterpart in ``want``: finite,
     and ||got - want|| <= GRAD_REL_L2 * ||want|| (a zero ``want`` must be
     matched exactly). Returns the largest relative error."""
     worst = 0.0
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
-        a, b = a.double(), b.double()
-        err = float(torch.linalg.vector_norm(a - b))
-        ref = float(torch.linalg.vector_norm(b))
-        rel = err / ref if ref else (0.0 if err == 0 else float("inf"))
+        rel = _rel(a, b)
         worst = max(worst, rel)
         if rel > GRAD_REL_L2 or not torch.isfinite(a).all():
             raise AssertionError(f"{label}: tensor {i} {tuple(a.shape)} "
@@ -803,9 +826,33 @@ def phase_train() -> dict:
     plain = loss_fn(p, batch, plain=True)
     compare("train loss through the Functions vs the plain-routed loss",
             loss.detach(), plain.detach(), LOSS_TOL)
+    plain_grads = torch.autograd.grad(plain, leaves)
     grad_err = check_tensors("train gradients through the Functions vs "
                              "autograd of the plain-routed forward", grads,
-                             torch.autograd.grad(plain, leaves))
+                             plain_grads)
+    del p, leaves, loss, plain
+    # the float64 plain-routed gradient at the same parameters: how far each
+    # route is from exact (read, not held: the check above holds them)
+    paths = [path for path, _ in tree.flatten_with_path(params)]
+    leaves64 = [x.detach().double().requires_grad_()
+                for x in tree.leaves(params)]
+    batch64 = {**batch, "dense": batch["dense"].double(),
+               "labels": batch["labels"].double()}
+    exact = torch.autograd.grad(loss_fn(tree.unflatten(params, leaves64),
+                                        batch64, plain=True), leaves64)
+    del leaves64
+    far = {route: [_rel(g, e) for g, e in zip(gs, exact, strict=True)]
+           for route, gs in (("kernel", grads), ("plain", plain_grads))}
+    del exact, plain_grads
+    worst = {route: max(range(len(paths)), key=e.__getitem__)
+             for route, e in far.items()}
+    print("[train] against the float64 plain-routed gradient, largest "
+          "relative error ||g - g64|| / ||g64||: "
+          + "; ".join(f"{route} route {far[route][i]:.3e} at {paths[i]} "
+                      f"(the other route there {far[other][i]:.3e})"
+                      for route, other in (("kernel", "plain"),
+                                           ("plain", "kernel"))
+                      for i in (worst[route],)))
     return dict(launches=launches, step_ms=_median(warm) * 1e3,
                 peak_gib=peak / 2**30, ckpt_gb=ckpt_bytes / 1e9,
                 ckpt_s=t_ckpt, grad_err=grad_err,
@@ -885,6 +932,216 @@ def phase_cli() -> None:
                              "for 10 more")
 
 
+def _steps_ms(fn, reps: int = 20) -> float:
+    """Median host ms of ``fn()`` ending in a synchronise, after a warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * _median(times)
+
+
+def phase_sharded(served: dict, card: str) -> dict:
+    """The distributed embedding over NCCL on a (1, 1) mesh: dlrm-rm2 at
+    full width, remap on (the train pipeline's init and offline sweep);
+    the mesh forwards and a 2D training step against the single-device
+    path; compressed_psum; a checkpoint restored onto shardings."""
+    import torch.distributed as dist
+    cfg = configs.DLRM_RM2
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dmesh.init("cuda", rank=0, world_size=1,
+               store=dist.FileStore(os.path.join(pg_dir, "store"), 1))
+    try:
+        mesh = dmesh.make_mesh((1, 1), ("data", "model"), "cuda")
+        print(f"[sharded] process group: {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}; mesh {mesh.shape} on {mesh.device}")
+        t0 = time.perf_counter()
+        params = dlrm.init(TRAIN["seed"], cfg, device="cuda")
+        rank_of, hot = train_mod.remap_tables(params, cfg, TRAIN["seed"])
+        single = dlrm.add_remap(params, rank_of, hot)
+        torch.cuda.synchronize()
+        print(f"[sharded] {cfg.name}: {cfg.n_tables} tables x "
+              f"{cfg.n_rows[0]} rows x {cfg.embed_dim} f32, remap on; set-up "
+              f"{time.perf_counter() - t0:.2f} s")
+        # this rank's blocks: on a (1, 1) mesh each is the whole tensor (a
+        # view, no copy); rank_of shards as its table's rows
+        specs = {"1d": make_param_specs(params, configs.PARAM_RULES),
+                 "2d": make_param_specs(params, configs.PARAM_RULES_2D)}
+        blocks = {k: {**tree.tree_map(
+            lambda x, s: NamedSharding(mesh, s).shard(x), params, sp),
+            "rank_of": [NamedSharding(mesh, P(("model", "data") if k == "2d"
+                                            else "model")).shard(r)
+                        for r in rank_of]} for k, sp in specs.items()}
+        ways = {"masked-psum (two-phase)": ("1d", {}),
+                "hybrid": ("1d", dict(hybrid=True)),
+                "hybrid + table_2d": ("2d", dict(hybrid=True,
+                                                 table_2d=True))}
+        b = TRAIN["batch"]
+        tbatch = train_mod.make_batch_fn(cfg, b, TRAIN["seed"],
+                                         torch.device("cuda"))(0)
+
+        def mesh_loss(p, batch):
+            return dlrm.loss({**p, "rank_of": blocks["2d"]["rank_of"]},
+                             batch, cfg, mesh, hybrid=True, table_2d=True)
+
+        def mesh_grads():
+            leaves = [x.detach().requires_grad_()
+                      for x in tree.leaves(params)]
+            loss = mesh_loss(tree.unflatten(params, leaves), tbatch)
+            grads = sync_grads(mesh, tree.unflatten(params, list(
+                torch.autograd.grad(loss, leaves))), specs["2d"])
+            return loss.detach(), tree.leaves(grads)
+
+        # the main path of this phase, counted: three mesh forwards of the
+        # served batch and one 2D training step
+        reset_counts()
+        mesh.calls.clear()
+        outs, per_way = {}, {}
+        with torch.inference_mode():
+            for way, (k, kw) in ways.items():
+                before = dict(mesh.calls)
+                fused0 = dot_interaction_fused.launches
+                outs[way] = dlrm.forward(blocks[k], served, cfg, mesh, **kw)
+                per_way[way] = dict(
+                    collectives={c: n - before.get(c, 0)
+                                 for c, n in mesh.calls.items()},
+                    fused=dot_interaction_fused.launches - fused0)
+        before = dict(mesh.calls)
+        fused0 = dot_interaction_fused.launches
+        loss, grads = mesh_grads()
+        torch.cuda.synchronize()
+        train_calls = {c: n - before.get(c, 0) for c, n in mesh.calls.items()}
+        train_fused = dot_interaction_fused.launches - fused0
+        launches = read_counts()
+        want = {"recflash_sls_grouped": 0, "dot_interaction_fused": 4,
+                "recflash_sls": 0, "dot_interaction": 0}
+        print(f"[sharded] launches over the phase's path (3 mesh forwards, "
+              f"1 training step): {launches}")
+        if launches != want:
+            raise AssertionError(f"sharded launch counts {launches} != "
+                                 f"{want}")
+        for way, info in per_way.items():
+            print(f"[sharded] forward {way}: NCCL collectives per step "
+                  f"{info['collectives']}, fused-interaction launches "
+                  f"{info['fused']}")
+        print(f"[sharded] training step (hybrid + table_2d, batch {b}): NCCL "
+              f"collectives per step (forward, backward, gradient sync) "
+              f"{train_calls}, fused-interaction launches {train_fused}")
+
+        # against the single-device kernel path (these launches not
+        # counted above)
+        with torch.inference_mode():
+            want_logits = dlrm.forward(single, served, cfg)
+        errs = {way: compare(f"sharded forward {way} vs the single-device "
+                             f"kernel forward (batch {served['dense'].shape[0]})",
+                             out, want_logits, LOGIT_TOL)
+                for way, out in outs.items()}
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
+        ref_loss = dlrm.loss(dlrm.add_remap(tree.unflatten(params, leaves),
+                                            rank_of, hot), tbatch, cfg)
+        ref_grads = torch.autograd.grad(ref_loss, leaves)
+        compare("sharded 2D training loss vs the single-device step's",
+                loss, ref_loss.detach(), LOSS_TOL)
+        grad_err = check_tensors("sharded 2D training gradients (after "
+                                 "sync_grads) vs the single-device step's",
+                                 grads, ref_grads)
+        del leaves, ref_grads
+
+        # compressed_psum on a real gradient leaf: the first table's
+        comp_leaf = grads[[path for path, _ in tree.flatten_with_path(
+            params)].index("['tables'][0]")]
+        out, st = compressed_psum(comp_leaf, "data",
+                                  CompressionState.zeros_like(comp_leaf), 8,
+                                  mesh=mesh)
+        scale = torch.clamp_min(comp_leaf.abs().max() / 127.0, 1e-20)
+        deq = torch.clamp(torch.round(comp_leaf / scale), -127, 127) * scale
+        exact = dict(rtol=0.0, atol=0.0)
+        compare(f"compressed_psum (8 bits, data axis of 1) of a "
+                f"{tuple(comp_leaf.shape)} table gradient vs its own "
+                f"quantise-dequantise", out, deq, exact)
+        compare("compressed_psum residual vs the gradient less its "
+                "dequantised payload", st.residual, comp_leaf - deq, exact)
+        del grads, out, st, deq, comp_leaf
+
+        # warm steps: mesh forwards beside the single-device forward, the
+        # mesh training step's forward and backward beside the
+        # single-device one's
+        with torch.inference_mode():
+            fwd_ms = {way: _steps_ms(lambda k=k, kw=kw: dlrm.forward(
+                blocks[k], served, cfg, mesh, **kw)) for way, (k, kw)
+                      in ways.items()}
+            fwd_ms["single device (kernels)"] = _steps_ms(
+                lambda: dlrm.forward(single, served, cfg))
+
+        def single_grads():
+            lv = [x.detach().requires_grad_() for x in tree.leaves(params)]
+            loss = dlrm.loss(dlrm.add_remap(tree.unflatten(params, lv),
+                                            rank_of, hot), tbatch, cfg)
+            return torch.autograd.grad(loss, lv)
+
+        step_ms = {"hybrid + table_2d": _steps_ms(mesh_grads, reps=3),
+                   "single device (kernels)": _steps_ms(single_grads,
+                                                        reps=3)}
+        # one collective alone, on a group of one rank: 52 back to back at
+        # a batch-64 bag's shape (the masked-psum forward's count)
+        from repro_torch.distributed.mesh import (all_gather, psum,
+                                                  psum_scatter)
+        x = torch.randn(64, cfg.embed_dim, device="cuda")
+        one_ms = {name: _steps_ms(lambda f=f: [f(x, mesh, "model")
+                                               for _ in range(52)],
+                                  reps=5) / 52
+                  for name, f in (("all_reduce", psum),
+                                  ("reduce_scatter", psum_scatter),
+                                  ("all_gather", all_gather))}
+        print(f"[sharded] one NCCL collective on a group of one, (64, "
+              f"{cfg.embed_dim}) f32, 52 back to back: "
+              + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in one_ms.items())
+              + f" per call on {card}")
+        for way, ms in fwd_ms.items():
+            print(f"[sharded] forward {way}, warm, batch "
+                  f"{served['dense'].shape[0]}: median {ms:.3f} ms on {card}")
+        for way, ms in step_ms.items():
+            print(f"[sharded] training forward + backward {way}, warm, batch "
+                  f"{b}: median {ms:.1f} ms on {card}")
+        del blocks, single, params, rank_of
+
+        # a small_dlrm checkpoint (TrainLoop's state) onto shardings
+        args = argparse.Namespace(**{**TRAIN, "batch": 64})
+        p_small, opt, _, _ = train_mod._dlrm_pipeline(args, True)
+        state = (p_small, opt.init(p_small), torch.zeros((), device="cuda"))
+        sh = tree.tree_map(lambda s: NamedSharding(mesh, s), (
+            make_param_specs(state[0], configs.PARAM_RULES_2D),
+            make_param_specs(state[1], configs.OPT_RULES_2D), P()))
+        ck_dir = tempfile.mkdtemp(prefix="chip_smoke_shard_ckpt_")
+        try:
+            checkpoint.save(ck_dir, 1, state)
+            got = checkpoint.restore(ck_dir, 1, state, sh)
+            checkpoint.save(ck_dir, 2, got, shardings=sh)
+            again = checkpoint.restore(ck_dir, 2, state, sh)
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        n_leaves = len(tree.leaves(state))
+        if not all(a.device.type == "cuda" and torch.equal(a, b) and
+                   torch.equal(c, b) for a, b, c in zip(
+                       tree.leaves(got), tree.leaves(state),
+                       tree.leaves(again), strict=True)):
+            raise AssertionError("the checkpoint restored onto shardings "
+                                 "differs from the saved state")
+        print(f"[sharded] small_dlrm TrainLoop state ({n_leaves} leaves) "
+              f"saved, restored onto 2D shardings on the card, saved from "
+              f"them and restored again: equal")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    return dict(launches=launches, fwd_ms=fwd_ms, step_ms=step_ms,
+                one_ms=one_ms, errs=errs, grad_err=grad_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -902,14 +1159,19 @@ def main() -> int:
     records = phase_time(res, launches, err)
     phase_profile(res)
     check_report(res)
+    served = {k: v.clone() for k, v in res.inputs[0].items()}
     del res
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train()
     phase_resume()
     phase_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(served, card)
     by_path = {"serve": launches, "train": train["launches"],
-               "retrieval": retrieval["launches"]}
+               "retrieval": retrieval["launches"],
+               "sharded": sharded["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]
@@ -930,6 +1192,10 @@ def main() -> int:
           + f"), peak {train['peak_gib']:.2f} GiB, checkpoint "
           f"{train['ckpt_gb']:.3f} GB in {train['ckpt_s']:.2f} s; retrieval "
           f"{retrieval['ms']:.3f} ms per 1 x {N_CANDIDATES} call")
+    print(f"[sharded] on {card}: mesh forward, warm, batch 64: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sharded["fwd_ms"].items())
+          + "; training forward + backward at batch 4096: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sharded["step_ms"].items()))
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,16 +1,19 @@
-"""DLRM shapes: the model config, the paper's RMC classes and the registry
-archs the serving path takes (numpy and dataclasses only).
+"""DLRM shapes: the model config, the paper's RMC classes, the registry
+archs the serving path takes and the recsys sharding rules.
 
 Copied from the reference: ``DLRMConfig``/``make_rmc``/RMC1-3
 (``repro.models.dlrm``), ``small_dlrm`` (``repro.launch.train``), the
-dlrm-mlperf and dlrm-rm2 shapes (``repro.configs``). ``arch_shape`` is
-the arch resolution of ``repro.serving.deployment``; ``arch_model_config``
-goes through the port's own ``DeploymentConfig``.
+dlrm-mlperf and dlrm-rm2 shapes and the sharding rules
+(``repro.configs``). ``arch_shape`` is the arch resolution of
+``repro.serving.deployment``; ``arch_model_config`` goes through the
+port's own ``DeploymentConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.distributed.shardings import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +99,24 @@ DLRM_MLPERF = make_dlrm_config()
 DLRM_RM2 = make_dlrm_config(
     name="dlrm-rm2", dim=64, bot=(13, 512, 256, 64),
     top=(512, 512, 256, 1), vocabs=[1_000_000] * 26, lookups=80)
+
+# dlrm-mlperf's sharding rules (repro.configs.dlrm_mlperf): tables
+# row-sharded over the model axis, MLPs replicated; or, for training, over
+# (model x data), so every row has one owner (vocabs pad to /512, so they
+# divide the 256-way grid).
+PARAM_RULES = [("tables", P("model", None))]
+PARAM_RULES_2D = [("tables", P(("model", "data"), None))]
+
+
+def recsys_opt_rules(param_rules):
+    """Optimizer-state rules (repro.configs.recsys_common): row-wise
+    adagrad's (V,) accumulators shard over the model axis."""
+    return [("['table'][", P("model"))] + param_rules
+
+
+# with 2D tables the accumulators shard as their rows do
+# (repro.configs.dlrm_mlperf.make_dlrm_bundle)
+OPT_RULES_2D = [("['table'][", P(("model", "data")))] + PARAM_RULES_2D
 
 
 def arch_shape(name: str) -> DLRMConfig:

@@ -2,8 +2,8 @@
 a gather and a reduction.
 
 * ``embedding_bag_dense``: fixed ``(batch, bag)`` index matrices, the DLRM
-  multi-hot case; a plain reduction over the bag axis. It is the plain
-  version of the SLS kernel (``repro_torch.kernels.ref``).
+  multi-hot case; a plain reduction over the bag axis. (The SLS kernel's
+  plain version, ``repro_torch.kernels.ref``, adds in lookup order.)
 * ``embedding_bag_ragged``: flat indices grouped by segment ids (torch
   EmbeddingBag's flat layout, with ``offsets_to_segment_ids``), reduced
   per segment with the reference's ``jax.ops.segment_*`` results, empty

@@ -8,8 +8,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.embedding.bag import embedding_bag_dense
 from repro_torch.embedding.layout import lookup
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is float64 (a float64
+    oracle runs through the plain versions)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def sum_in_order(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` (..., L, D) summed over L one row at a time, in lookup
+    order: the additions of the TPU kernel's ``fori_loop`` and of the CUDA
+    kernel, so that the plain version rounds each bag as they do. (A
+    ``torch.sum`` rounds in another order; a training step's gradients
+    through the two forwards can then differ far beyond their rounding
+    where a ReLU sits at its kink and a batch sum cancels.)"""
+    acc = rows.new_zeros(rows.shape[:-2] + rows.shape[-1:])
+    for row in rows.unbind(-2):
+        acc = acc + row
+    return acc
 
 
 def recflash_sls_ref(hot: torch.Tensor, cold: torch.Tensor,
@@ -17,9 +35,10 @@ def recflash_sls_ref(hot: torch.Tensor, cold: torch.Tensor,
     """Two-tier SLS: ``hot`` (H, D) and ``cold`` (V-H, D) are the two tiers
     of the rank-ordered table, ``indices`` (B, L) ranks into the conceptual
     concatenation [hot; cold]. Returns (B, D) bag sums in float32 (rows are
-    widened before the sum, as the reference oracle does)."""
-    table = torch.cat([hot, cold]).float()
-    return embedding_bag_dense(table, indices)
+    widened before the sum, as the reference oracle does), added in lookup
+    order (``sum_in_order``)."""
+    table = _widen(torch.cat([hot, cold]))
+    return sum_in_order(lookup(table, indices))
 
 
 def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
@@ -28,19 +47,20 @@ def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
     (rank-ordered) tables, each split at its ``hot_sizes`` entry; ``indices``
     (B, n_tables, L) are logical ids translated through ``rank_of[t]`` (the
     paper's hash table), or ranks when ``rank_of`` is None. Returns
-    (B, n_tables, D) float32."""
-    bags = []
+    (B, n_tables, D) float32, every table's bags added in one
+    ``sum_in_order`` (L launches, not n_tables * L)."""
+    rows = []
     for t, (stored, h) in enumerate(zip(tables, hot_sizes, strict=True)):
         idx = indices[:, t, :]
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
-        bags.append(recflash_sls_ref(stored[:h], stored[h:], idx))
-    return torch.stack(bags, dim=1)
+        rows.append(lookup(_widen(torch.cat([stored[:h], stored[h:]])), idx))
+    return sum_in_order(torch.stack(rows, dim=1))
 
 
 def dot_interaction_ref(z: torch.Tensor) -> torch.Tensor:
     """DLRM pairwise dots: z (B, T, D) -> (B, T, T) float32 Gram matrices."""
-    zf = z.float()
+    zf = _widen(z)
     return torch.einsum("bid,bjd->bij", zf, zf)
 
 
@@ -58,5 +78,5 @@ def dot_interaction_fused_ref(bottom_out: torch.Tensor,
     (B, T-1, D) -> (B, D + T(T-1)/2) float32, ``bottom_out`` followed by the
     strict upper triangle of the Gram of z = [bottom_out; bags]."""
     z = torch.cat([bottom_out[:, None, :], bags], dim=1)
-    return torch.cat([bottom_out.float(),
+    return torch.cat([_widen(bottom_out),
                       upper_triangle(dot_interaction_ref(z))], dim=1)

@@ -31,7 +31,57 @@ import torch
 from repro_torch import optim, tree
 from repro_torch.configs import DLRMConfig, small_dlrm
 from repro_torch.device import resolve_device
+from repro_torch.distributed.shardings import sync_grads
 from repro_torch.runtime import LoopConfig, TrainLoop
+
+
+def remap_tables(params: dict, cfg: DLRMConfig, seed: int):
+    """The paper's offline phase (Fig. 8) on ``params``: a sampled sweep of
+    512 batches counts row accesses and each table is replaced, one at a
+    time, by its copy in access-frequency order (AF remap). Returns the
+    per-table ``rank_of`` (int32, on the tables' device) and hot sizes."""
+    import repro_torch.models.dlrm as dlrm
+    from repro_torch.core.freq import AccessStats
+    from repro_torch.data.tracegen import generate_sls_batch
+    from repro_torch.embedding.layout import RemapSpec, remap_table
+
+    tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0], cfg.lookups,
+                                  512, k=0.0, seed=seed + 1)
+    specs = []
+    for t in range(cfg.n_tables):
+        counts = AccessStats.from_trace(rows[tb == t], cfg.n_rows[0]).counts
+        specs.append(RemapSpec.from_counts(counts))
+    tables = params["tables"]
+    for t, spec in enumerate(specs):      # one logical copy at a time
+        tables[t] = remap_table(tables[t], spec)
+    hot_sizes = [s.hot_size for s in specs]
+    # checked and made int32 on the device once, here
+    rank_ofs = dlrm.add_remap(params, [s.rank_of for s in specs],
+                              hot_sizes)["rank_of"]
+    return rank_ofs, hot_sizes
+
+
+def make_batch_fn(cfg: DLRMConfig, batch: int, seed: int,
+                  device: torch.device):
+    """``batch_fn(step)``: the reference's synthetic CTR batch of ``step``
+    (Zipf lookups, normal dense features, clicks that correlate with dense
+    feature 0), on ``device``."""
+    from repro_torch.data.tracegen import generate_sls_batch
+
+    def batch_fn(step):
+        rng = np.random.default_rng(seed * 100_000 + step)
+        tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0],
+                                      cfg.lookups, batch, k=0.0, seed=step)
+        idx = rows.reshape(batch, cfg.n_tables, cfg.lookups)
+        dense = rng.normal(size=(batch, cfg.n_dense)).astype(np.float32)
+        # synthetic CTR: clicks correlate with dense feature 0
+        labels = (dense[:, 0] + rng.normal(scale=0.5, size=batch)
+                  > 0.5).astype(np.float32)
+        return {"dense": torch.from_numpy(dense).to(device),
+                "indices": torch.from_numpy(idx.astype(np.int32)).to(device),
+                "labels": torch.from_numpy(labels).to(device)}
+
+    return batch_fn
 
 
 def _dlrm_pipeline(args, remap: bool, cfg: DLRMConfig | None = None):
@@ -44,72 +94,46 @@ def _dlrm_pipeline(args, remap: bool, cfg: DLRMConfig | None = None):
     routes the forward through the kernels' plain versions (the oracle).
     """
     import repro_torch.models.dlrm as dlrm
-    from repro_torch.core.freq import AccessStats
-    from repro_torch.data.tracegen import generate_sls_batch
-    from repro_torch.embedding.layout import RemapSpec, remap_table
 
     cfg = small_dlrm() if cfg is None else cfg
     device = resolve_device(args.device)
     params = dlrm.init(args.seed, cfg, device=device)
-
-    # offline phase (paper Fig. 8): sampled sweep -> AF remap of the tables
     rank_ofs = hot_sizes = None
     if remap:
-        tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0],
-                                      cfg.lookups, 512, k=0.0,
-                                      seed=args.seed + 1)
-        specs = []
-        for t in range(cfg.n_tables):
-            counts = AccessStats.from_trace(rows[tb == t],
-                                            cfg.n_rows[0]).counts
-            specs.append(RemapSpec.from_counts(counts))
-        tables = params["tables"]
-        for t, spec in enumerate(specs):      # one logical copy at a time
-            tables[t] = remap_table(tables[t], spec)
-        hot_sizes = [s.hot_size for s in specs]
-        # checked and made int32 on the device once, here
-        rank_ofs = dlrm.add_remap(params, [s.rank_of for s in specs],
-                                  hot_sizes)["rank_of"]
+        rank_ofs, hot_sizes = remap_tables(params, cfg, args.seed)
 
     opt = optim.partitioned(
         lambda ks: "table" if "tables" in ks else "dense",
         {"table": optim.adagrad(args.lr_table, rowwise=True),
          "dense": optim.adamw(args.lr)})
 
-    def batch_fn(step):
-        rng = np.random.default_rng(args.seed * 100_000 + step)
-        tb, rows = generate_sls_batch(cfg.n_tables, cfg.n_rows[0],
-                                      cfg.lookups, args.batch, k=0.0,
-                                      seed=step)
-        idx = rows.reshape(args.batch, cfg.n_tables, cfg.lookups)
-        dense = rng.normal(size=(args.batch, cfg.n_dense)) \
-            .astype(np.float32)
-        # synthetic CTR: clicks correlate with dense feature 0
-        labels = (dense[:, 0] + rng.normal(scale=0.5, size=args.batch)
-                  > 0.5).astype(np.float32)
-        return {"dense": torch.from_numpy(dense).to(device),
-                "indices": torch.from_numpy(idx.astype(np.int32)).to(device),
-                "labels": torch.from_numpy(labels).to(device)}
-
     def loss_fn(p, batch, plain=False):
         pp = dlrm.add_remap(p, rank_ofs, hot_sizes) if remap else p
-        return dlrm.loss(pp, batch, cfg, plain)
+        return dlrm.loss(pp, batch, cfg, plain=plain)
 
-    return params, opt, loss_fn, batch_fn
+    return params, opt, loss_fn, make_batch_fn(cfg, args.batch, args.seed,
+                                               device)
 
 
-def make_step(opt, loss_fn):
+def make_step(opt, loss_fn, mesh=None, param_specs=None):
     """``step(state, batch) -> state`` for state ``(params, opt_state,
     loss)``: the loss and its gradient with respect to every parameter
-    (the reference's ``jax.value_and_grad``), then the optimizer update."""
+    (the reference's ``jax.value_and_grad``), then the optimizer update.
+
+    On a mesh (``params`` this rank's blocks of ``param_specs``) each
+    gradient is first summed over the mesh axes its parameter is replicated
+    on (``shardings.sync_grads``), so that every rank updates its block
+    with its block of the global gradient."""
 
     def step_fn(state, batch):
         params, opt_state, _ = state
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss = loss_fn(tree.unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        params, opt_state = opt.update(tree.unflatten(params, list(grads)),
-                                       opt_state, params)
+        grads = tree.unflatten(params, list(torch.autograd.grad(loss,
+                                                                leaves)))
+        if mesh is not None:
+            grads = sync_grads(mesh, grads, param_specs)
+        params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss.detach()
 
     return step_fn

@@ -1,10 +1,10 @@
-"""DLRM (Naumov et al., arXiv:1906.00091) on torch tensors, single device.
+"""DLRM (Naumov et al., arXiv:1906.00091) on torch tensors.
 
 dense features -> bottom MLP -> d-dim vector; each sparse field -> SLS
 (embedding-bag sum) -> d-dim vector; pairwise-dot interaction over the
 (n_tables + 1) vectors; concat [bottom_out, interactions] -> top MLP -> CTR
 logit. Port of ``repro.models.dlrm`` (``init``, ``interact``, ``forward``,
-``loss``, ``add_remap``, ``retrieval_score``; the mesh branches wait).
+``loss``, ``add_remap``, ``retrieval_score``, with their mesh branches).
 
 Unlike the reference forward, which takes bags with ``jnp.take`` and the
 interaction with an einsum, this forward routes both through the port's
@@ -20,6 +20,15 @@ When a gradient is wanted (grad mode on and parameters that require one),
 both launches go through their ``autograd.Function`` (``kernels.ops``):
 the forward is still the kernel, the backward plain PyTorch, and each stored
 table gets the dense (V, D) gradient ``jax.grad`` gives the reference.
+
+Under a mesh (``mesh=``, a ``repro_torch.distributed.mesh.Mesh``) each
+rank runs the reference's ``shard_map`` bodies on its blocks: ``params``
+hold this rank's rows of each table (and of each ``rank_of``), ``batch``
+this rank's rows of the batch, and the outputs are this rank's block. The
+bags are the row-sharded masked-psum SLS of ``repro_torch.embedding.
+sharded`` (plain PyTorch gathers and NCCL or gloo collectives), one table
+at a time as the reference does; the interaction is still one fused
+launch on the rank's rows.
 """
 
 from __future__ import annotations
@@ -30,8 +39,13 @@ import torch
 
 from repro_torch.configs import DLRMConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import out_boundary, psum
+from repro_torch.distributed.shardings import P
 from repro_torch.embedding.layout import lookup
-from repro_torch.kernels import ops, ref
+from repro_torch.embedding.sharded import (sharded_embedding_bag,
+                                           sharded_embedding_bag_2d,
+                                           sharded_remapped_bag)
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.recflash_sls import describe
 from repro_torch.models.common import mlp, mlp_init, uniform_init
 
@@ -67,16 +81,34 @@ def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
     return z.reshape(z.shape[0], -1)
 
 
-def _bag(params, indices: torch.Tensor, t: int,
+def _bag(params, indices: torch.Tensor, t: int, mesh=None, axes=("data",),
+         hybrid: bool = False, table_2d: bool = False,
          plain: bool = False) -> torch.Tensor:
-    """One table's SLS over its stored table, split at its hot size: a
-    per-table launch, with the ids translated by a gather before it.
-    ``forward`` takes all tables at once (``bags``).
+    """One table's SLS. Without a mesh: over its stored table, split at its
+    hot size, a per-table launch with the ids translated by a gather before
+    it (``forward`` takes all tables at once, ``bags``).
 
     With remap enabled (``rank_of`` present) logical ids are first
     translated to ranks on the device (the paper's hash table). A table
     without a remap is served as ``RemapSpec.identity`` would: hot size 1.
+
+    Under a mesh: the sharded masked-psum SLS on this rank's rows, through
+    the two-phase translation when remapped. ``axes=None`` means indices
+    replicated over the data axes (the batch-1 user side of retrieval).
+    ``hybrid=True`` finishes with a reduce-scatter: the bags come back with
+    the batch split over (axes x model). ``table_2d=True`` shards the table
+    rows over (model x data) as well.
     """
+    if mesh is not None:
+        table, ro = params["tables"][t], params.get("rank_of")
+        if table_2d and axes is not None:
+            return sharded_embedding_bag_2d(
+                table, indices, ro[t] if ro else None, mesh=mesh)
+        if ro is not None:
+            return sharded_remapped_bag(table, ro[t], indices, "model",
+                                        scatter=hybrid, mesh=mesh)
+        return sharded_embedding_bag(table, indices, "model", scatter=hybrid,
+                                     mesh=mesh)
     stored = params["tables"][t]
     if "rank_of" in params:
         idx = lookup(params["rank_of"][t], indices)
@@ -109,30 +141,80 @@ def bags(params, indices: torch.Tensor, plain: bool = False
                                     params.get("sls_desc"))
 
 
-def forward(params, batch, cfg: DLRMConfig, plain: bool = False
-            ) -> torch.Tensor:
-    """batch: dense (B,n_dense) f32, indices (B,n_tables,lookups) int32."""
-    x = mlp(params["bot"], batch["dense"])
-    feat = interact(x, bags(params, batch["indices"], plain),
-                    cfg.interaction, plain)
+def _constrain_hybrid(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's rows of ``x``, the rank's block over ``axes``: its
+    ``model`` chunk, where the reduce-scatter over the model axis leaves the
+    bags (``P(axes + ("model",))``)."""
+    n = mesh.axis_size("model")
+    if x.shape[0] % n:
+        raise ValueError(f"the hybrid layout splits the {x.shape[0]} rows "
+                         f"of this rank's batch over {n} model ranks: not "
+                         "divisible")
+    return x.chunk(n)[mesh.axis_index("model")]
+
+
+def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
+            hybrid: bool = False, table_2d: bool = False,
+            plain: bool = False) -> torch.Tensor:
+    """batch: dense (B,n_dense) f32, indices (B,n_tables,lookups) int32.
+
+    Under a mesh, ``hybrid`` splits the batch across (axes x model) for the
+    dense path (bottom/top MLP and interaction): the bags' all-reduce
+    becomes a reduce-scatter and the dense compute uses every rank instead
+    of running model-ways replicated; ``table_2d`` (with ``hybrid``) takes
+    the 2D row-sharded tables.
+    """
+    hybrid = hybrid and mesh is not None and axes is not None
+    dense_in = batch["dense"]
+    if hybrid:
+        dense_in = _constrain_hybrid(dense_in, mesh, axes)
+    x = mlp(params["bot"], dense_in)
+    if mesh is None:
+        all_bags = bags(params, batch["indices"], plain)
+    else:
+        all_bags = torch.stack(
+            [_bag(params, batch["indices"][:, t, :], t, mesh, axes, hybrid,
+                  table_2d=hybrid and table_2d)
+             for t in range(cfg.n_tables)], dim=1)
+    feat = interact(x, all_bags, cfg.interaction, plain)
     return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
 
-def loss(params, batch, cfg: DLRMConfig, plain: bool = False
-         ) -> torch.Tensor:
+def loss(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
+         hybrid: bool = False, table_2d: bool = False,
+         plain: bool = False) -> torch.Tensor:
     """Mean binary cross-entropy of the CTR logits against ``labels``,
     written as the reference writes it (``max(l, 0) - l*y +
     log1p(exp(-|l|))``), not as ``F.binary_cross_entropy_with_logits``,
-    whose rounding differs."""
-    logits = forward(params, batch, cfg, plain)
+    whose rounding differs.
+
+    Under a mesh it is the mean over the global batch, on every rank. Its
+    gradients are those of ``jax.grad`` under ``shard_map``'s rules: after
+    ``shardings.sync_grads`` over the params' specs, each rank holds its
+    block of the reference's gradient.
+    """
+    logits = forward(params, batch, cfg, mesh, axes, hybrid, table_2d,
+                     plain)
     y = batch["labels"]
-    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
-                      - logits * y
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    hybrid = hybrid and mesh is not None and axes is not None
+    if hybrid:
+        y = _constrain_hybrid(y, mesh, axes)
+    per = (torch.maximum(logits, logits.new_zeros(())) - logits * y
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    if mesh is None:
+        return torch.mean(per)
+    # the logits' rows are split over the batch axes (and model when
+    # hybrid) and replicated over the rest: summed over every rank, each
+    # row counts once per replica
+    row_axes = () if axes is None else \
+        tuple(axes) + (("model",) if hybrid else ())
+    reps = mesh.axis_size([a for a in mesh.axis_names if a not in row_axes])
+    part = per.sum() / (per.shape[0] * mesh.axis_size(row_axes))
+    return out_boundary(psum(part, mesh, mesh.axis_names) / reps, mesh, P())
 
 
-def retrieval_score(params, batch, cfg: DLRMConfig, plain: bool = False
-                    ) -> torch.Tensor:
+def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
+                    axes=("data",), plain: bool = False) -> torch.Tensor:
     """Score 1 user against N candidates (the retrieval_cand shape).
 
     batch: dense (1, n_dense), indices (1, n_tables, lookups), candidates
@@ -142,11 +224,20 @@ def retrieval_score(params, batch, cfg: DLRMConfig, plain: bool = False
     (N, 1) bags, after the rank_of gather. Then one fused interaction over
     the N rows, the user's bottom output broadcast (stride 0), and the top
     MLP. Returns (N,) logits.
+
+    Under a mesh the user's fields are sharded bags of replicated indices,
+    one table at a time, and ``candidates`` are this rank's block over
+    ``axes``; returns this rank's block of the scores.
     """
     x = mlp(params["bot"], batch["dense"])                       # (1, D)
-    fixed = bags(params, batch["indices"], plain)[:, :-1]         # (1, T-1, D)
+    if mesh is None:
+        fixed = bags(params, batch["indices"], plain)[:, :-1]     # (1, T-1, D)
+    else:
+        fixed = torch.stack([_bag(params, batch["indices"][:, t, :], t,
+                                  mesh, None)
+                             for t in range(cfg.n_tables - 1)], dim=1)
     cand = _bag(params, batch["candidates"][:, None], cfg.n_tables - 1,
-                plain)                                           # (N, D)
+                mesh, axes, plain=plain)                         # (N, D)
     n = cand.shape[0]
     all_bags = torch.cat([fixed.expand(n, -1, -1), cand[:, None, :]], dim=1)
     feat = interact(x.expand(n, -1), all_bags, cfg.interaction, plain)
@@ -163,7 +254,9 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     refuses them after a table, hot size or rank_of is replaced, so a
     training step, whose optimizer returns new tables, calls this every
     step. An int32 tensor is taken as it is: it cannot be out of range, and
-    checking a wider one reads its maximum back from the device.
+    checking a wider one reads its maximum back from the device. Tables of
+    a dtype the kernel does not take (float64, for a float64 oracle) get no
+    descriptors: only the plain route serves them.
     """
     device = params["tables"][0].device
     rank_of = []
@@ -176,5 +269,7 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
                                                                 hot_sizes))
     if len(hot) != len(rank_of):
         raise ValueError("need one hot size per rank_of table")
+    desc = (describe(params["tables"], hot, rank_of)
+            if params["tables"][0].dtype in _build.DTYPE_CODES else None)
     return {**params, "rank_of": rank_of, "hot_sizes": hot,
-            "sls_desc": describe(params["tables"], hot, rank_of)}
+            "sls_desc": desc}

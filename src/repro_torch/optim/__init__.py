@@ -12,8 +12,8 @@ reference's, in its order: ``adamw``'s bias corrections are f32 tensors
 (``b1 ** t`` with ``t`` an int32 0-d tensor), and ``adagrad`` steps by
 ``p - lr * g * scale``.
 
-The reference's ``Optimizer.state_specs`` (PartitionSpecs of ``adafactor``'s
-factored state on a mesh) waits for the port's DeviceMesh (ROADMAP A11).
+``Optimizer.state_specs`` (``adafactor``'s) derives the state's
+``PartitionSpec``s from the params' (``repro_torch.distributed``).
 """
 
 from __future__ import annotations
@@ -24,12 +24,17 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed.shardings import P
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]
+    # optional: the state's PartitionSpecs from the params' (needed where
+    # state shapes differ from param shapes, e.g. adafactor's factored
+    # moments): (params, param_specs) -> spec tree matching init(params)
+    state_specs: Callable[[Any, Any], Any] | None = None
 
 
 def _step_counter(params) -> torch.Tensor:
@@ -169,7 +174,32 @@ def adafactor(lr: float, eps: float = 1e-30,
         return (tree.unflatten(params, [o[0] for o in outs]),
                 {"s": tree.unflatten(params, [o[1] for o in outs]), "t": t})
 
-    return Optimizer(init, update)
+    def state_specs(params, param_specs):
+        """Factored stats drop a dim of the param: ``r`` the last entry of
+        its spec, ``c`` the second-to-last."""
+
+        def pad(spec, ndim):
+            s = tuple(spec)
+            return s + (None,) * (ndim - len(s))
+
+        def one(p, spec):
+            if _factored(p):
+                s = pad(spec, p.ndim)
+                return {"r": P(*s[:-1]), "c": P(*(s[:-2] + s[-1:]))}
+            return {"v": spec}
+
+        return {"s": _map_specs(params, param_specs, one), "t": P()}
+
+    return Optimizer(init, update, state_specs=state_specs)
+
+
+def _map_specs(params, param_specs, fn):
+    """``fn(param, spec)`` over the leaves of ``params`` and the matching
+    specs."""
+    return tree.unflatten(params, [
+        fn(p, s) for p, s in zip(tree.leaves(params),
+                                 tree.flatten_up_to(params, param_specs),
+                                 strict=True)])
 
 
 def partitioned(label_fn: Callable[[str], str],

@@ -14,8 +14,11 @@ PyTorch runs eagerly and returns before the card has finished, so every
 attempt ends in a synchronise of the state's device (the reference's
 ``jax.block_until_ready``): without it a step's time would be the time to
 queue its launches, and the straggler and retry guards would read nothing.
-Restoring onto a new mesh (the reference's ``shardings``) waits for the
-port's DeviceMesh (ROADMAP A11).
+
+``run(state, shardings)`` resumes onto a mesh: ``shardings`` (a tree of
+``NamedSharding``s matching the state) restores each leaf as this rank's
+block, and the loop's checkpoints gather the blocks and are written by rank
+0 (``repro_torch.checkpoint``). Every rank runs the loop.
 """
 
 from __future__ import annotations
@@ -89,8 +92,10 @@ class TrainLoop:
             durations.append(dt)
             executed += 1
             if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.total_steps:
-                ckpt_lib.save(cfg.ckpt_dir, step + 1, state)
-                ckpt_lib.gc_old(cfg.ckpt_dir, cfg.keep_ckpts)
+                ckpt_lib.save(cfg.ckpt_dir, step + 1, state,
+                              shardings=shardings)
+                if shardings is None or torch.distributed.get_rank() == 0:
+                    ckpt_lib.gc_old(cfg.ckpt_dir, cfg.keep_ckpts)
             if self.fail_after_steps is not None \
                     and executed >= self.fail_after_steps:
                 raise StepFailure(f"injected failure at step {step + 1}")

@@ -316,3 +316,106 @@ def test_retrieval_score_vs_plain(gen):
     torch.testing.assert_close(
         got, dlrm.retrieval_score(params, batch, cfg, plain=True),
         rtol=1e-4, atol=1e-5)
+
+
+# -- the distributed embedding at world size 1 over NCCL ---------------------
+# One card holds one NCCL rank (NCCL refuses two ranks on one device), so
+# the card runs the mesh path on a (1, 1) mesh: every collective a group of
+# one. The semantics of several ranks are held on the CPU with gloo
+# (tests/test_torch_sharded.py, tests/test_torch_distributed.py).
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL has no CPU mode")
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh as M
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    M.init("cuda", rank=0, world_size=1, store=store)
+    try:
+        yield M.make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tiny_remapped(gen):
+    cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
+                     n_rows=(512,) * 3, lookups=4, bot_mlp=(32, 16),
+                     top_mlp=(32,))
+    params = dlrm.init(0, cfg, device="cuda")
+    perm = [torch.randperm(512, generator=gen, device="cuda")
+            for _ in range(cfg.n_tables)]
+    single = dlrm.add_remap(params, [p.argsort().to(torch.int32)
+                                     for p in perm], [5, 50, 511])
+    batch = {"dense": torch.randn(16, 13, generator=gen, device="cuda"),
+             "indices": torch.randint(0, 512, (16, 3, 4), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+             "labels": (torch.rand(16, generator=gen, device="cuda")
+                        > 0.5).float()}
+    return cfg, params, single, batch
+
+
+@pytest.mark.parametrize("way", ["masked-psum", "hybrid", "hybrid-2d"])
+def test_mesh_forward_vs_single_device(gen, nccl_mesh, way):
+    cfg, params, single, batch = _tiny_remapped(gen)
+    meshp = {**params, "rank_of": single["rank_of"]}
+    before = (dot_interaction_fused.launches, recflash_sls_grouped.launches)
+    nccl_mesh.calls.clear()
+    got = dlrm.forward(meshp, batch, cfg, nccl_mesh,
+                       hybrid=way != "masked-psum", table_2d=way == "hybrid-2d")
+    # the fused interaction on the rank's rows; the bags are masked gathers
+    assert (dot_interaction_fused.launches, recflash_sls_grouped.launches) \
+        == (before[0] + 1, before[1])
+    assert sum(nccl_mesh.calls.values()) >= 2 * cfg.n_tables
+    torch.testing.assert_close(got, dlrm.forward(single, batch, cfg),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_mesh_loss_gradients_vs_single_device(gen, nccl_mesh):
+    from repro_torch import configs, tree
+    from repro_torch.distributed.shardings import make_param_specs, sync_grads
+    cfg, params, single, batch = _tiny_remapped(gen)
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    p = tree.unflatten(params, leaves)
+    loss = dlrm.loss({**p, "rank_of": single["rank_of"]}, batch, cfg,
+                     nccl_mesh, hybrid=True, table_2d=True)
+    grads = sync_grads(nccl_mesh, tree.unflatten(params, list(
+        torch.autograd.grad(loss, leaves))),
+        make_param_specs(params, configs.PARAM_RULES_2D))
+    want = dlrm.loss(dlrm.add_remap(p, single["rank_of"],
+                                    single["hot_sizes"]), batch, cfg)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=1e-6)
+    _close_grads(tree.leaves(grads), torch.autograd.grad(want, leaves))
+
+
+def test_nccl_collectives_on_one_rank(gen, nccl_mesh):
+    from repro_torch.distributed.compression import (CompressionState,
+                                                     compressed_psum)
+    from repro_torch.distributed.mesh import all_gather, psum, psum_scatter
+    ranks = torch.randint(0, 100, (8, 3), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    assert psum(ranks, nccl_mesh, ("data", "model")).dtype == torch.int32
+    assert torch.equal(psum(ranks, nccl_mesh, "model"), ranks)
+    x = torch.randn(6, 4, generator=gen, device="cuda")
+    assert torch.equal(psum_scatter(x, nccl_mesh, ("data", "model")), x)
+    assert torch.equal(all_gather(x, nccl_mesh, "data", dim=1), x)
+    g = torch.randn(64, 64, generator=gen, device="cuda")
+    out, st = compressed_psum(g, "data", CompressionState.zeros_like(g), 8,
+                              mesh=nccl_mesh)
+    scale = torch.clamp_min(g.abs().max() / 127.0, 1e-20)
+    deq = torch.clamp(torch.round(g / scale), -127, 127) * scale
+    assert torch.equal(out, deq) and torch.equal(st.residual, g - deq)
+
+
+def test_restore_onto_the_card_mesh(gen, nccl_mesh, tmp_path):
+    from repro_torch import checkpoint, configs, tree
+    from repro_torch.distributed.shardings import NamedSharding, make_param_specs
+    _, params, _, _ = _tiny_remapped(gen)
+    specs = make_param_specs(params, configs.PARAM_RULES_2D)
+    sh = tree.tree_map(lambda s: NamedSharding(nccl_mesh, s), specs)
+    checkpoint.save(str(tmp_path), 1, params, shardings=sh)
+    got = checkpoint.restore(str(tmp_path), 1, params, sh)
+    for a, b in zip(tree.leaves(got), tree.leaves(params), strict=True):
+        assert a.device.type == "cuda" and torch.equal(a, b)

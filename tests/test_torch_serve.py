@@ -175,7 +175,10 @@ def test_no_jax_and_no_reference_modules_loaded():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.launch.serve' in sys.modules\n"
+        "for m in ('repro_torch.launch.serve', 'repro_torch.distributed', "
+        "'repro_torch.distributed.mesh', 'repro_torch.embedding.sharded', "
+        "'repro_torch.launch.mesh'):\n"
+        "    assert m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},

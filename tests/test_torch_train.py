@@ -6,6 +6,7 @@ and the training pipeline are in ``test_torch_train_dlrm.py``.
 
 import gc
 import os
+import types
 import weakref
 
 import jax
@@ -19,6 +20,7 @@ from repro import checkpoint as jax_ckpt
 from repro import optim as jax_optim
 from repro_torch import checkpoint as ckpt
 from repro_torch import optim, tree
+from repro_torch.distributed.shardings import P, NamedSharding
 from repro_torch.runtime import LoopConfig, StepFailure, TrainLoop
 
 # f32 elementwise updates in the same order; XLA and torch may round a
@@ -209,13 +211,48 @@ class TestCheckpoint:
         assert out[1]["dense"]["t"].dtype == torch.int32
 
     def test_bf16_and_shardings_wait(self, tmp_path):
+        """bf16 leaves still wait for a bf16 path (A13); shardings no
+        longer wait (A11): a leaf comes back as this rank's block, and a
+        shardings tree without one sharding per leaf is refused."""
         with pytest.raises(TypeError):
             ckpt.save(str(tmp_path), 1, {"x": torch.ones(2,
                                                          dtype=torch.bfloat16)})
         assert ckpt.latest_step(str(tmp_path)) is None
-        ckpt.save(str(tmp_path), 1, {"x": torch.ones(2)})
-        with pytest.raises(NotImplementedError):
+        ckpt.save(str(tmp_path), 1, {"x": torch.arange(8.0)})
+        with pytest.raises(ValueError):
             ckpt.restore(str(tmp_path), 1, {"x": torch.ones(2)}, {"x": None})
+        # restore reads only the mesh's shape, this rank's coordinate and
+        # its device, so no process group is needed here
+        mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                     coord={"data": 0, "model": 1},
+                                     device=torch.device("cpu"))
+        out = ckpt.restore(str(tmp_path), 1, {"x": torch.ones(2)},
+                           {"x": NamedSharding(mesh, P("model"))})
+        assert torch.equal(out["x"], torch.arange(4.0, 8.0))
+
+    @pytest.mark.parametrize("how", ["port", "savez_compressed"])
+    def test_restore_onto_shardings_reads_blocks(self, tmp_path, how):
+        """A block comes back exact whether the array is mapped from the
+        file (stored, as ``save`` and ``np.savez`` write it) or read whole
+        (compressed), a scalar leaf included."""
+        full = {"c": torch.tensor(3, dtype=torch.int32),
+                "w": torch.arange(48.0).reshape(6, 8)}
+        if how == "port":
+            ckpt.save(str(tmp_path), 1, full)
+        else:
+            d = tmp_path / "step_00000001"
+            d.mkdir()
+            np.savez_compressed(d / "arrays.npz", **{
+                f"['{k}']": v.numpy() for k, v in full.items()})
+        mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
+                                     coord={"data": 1, "model": 2},
+                                     device=torch.device("cpu"))
+        out = ckpt.restore(str(tmp_path), 1, full, {
+            "c": NamedSharding(mesh, P()),
+            "w": NamedSharding(mesh, P("data", "model"))})
+        assert out["c"].shape == () and int(out["c"]) == 3
+        assert out["c"].dtype == torch.int32
+        assert torch.equal(out["w"], full["w"][3:6, 4:6])
 
 
 def _step(state, batch):
