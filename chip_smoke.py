@@ -50,7 +50,22 @@ Phases, each of which fails the run when it fails:
    batch 4096 through the 2D hybrid loss against the single-device step,
    ``compressed_psum`` on a real gradient against its own quantise and
    dequantise, and a small_dlrm checkpoint restored onto shardings; the
-   warm steps, the collectives per step by kind and the launches.
+   warm steps, the collectives per step by kind and the launches;
+9. bf16: the served dlrm-rm2 model cast to bf16 (26 x 1M x 64 bf16, 3.33
+   GB, remap on): the three kernel entries in bf16 against their plain
+   versions at the serve shapes; then, counted, the serve lane's batches
+   (bf16 dense features, so bf16 bags, top-MLP input and logits), one
+   retrieval of 1 x 1M and one training step at batch 4096 (row-wise
+   adagrad and AdamW, float32 state) through the kernels; the logits and
+   scores against the plain route at the bf16 tolerance, the Functions'
+   gradients against plain autograd; each timed with CUDA events;
+10. recsys: DIN, BERT4Rec and GraphSAGE at the reference's configs, each
+   run on the card and held against the same port function on the CPU
+   with the same params (DIN forward at serve_p99, loss and gradients at
+   4096, retrieval of 1 x 1M in chunks; BERT4Rec score at 512, cloze loss
+   and gradients at 1024, retrieval of 1 x 1M ids; GraphSAGE sampled
+   Reddit-scale loss and gradients, Cora full-graph loss and gradients,
+   128 batched molecule graphs); they launch none of the port's kernels.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -79,7 +94,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import checkpoint, configs, tree  # noqa: E402
+from repro_torch import checkpoint, configs, optim, tree  # noqa: E402
 from repro_torch.data.tracegen import generate_sls_batch  # noqa: E402
 from repro_torch.distributed import mesh as dmesh  # noqa: E402
 from repro_torch.distributed.compression import (  # noqa: E402
@@ -104,6 +119,10 @@ from repro_torch.runtime import LoopConfig, StepFailure, TrainLoop  # noqa: E402
 # CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# the bf16 tensor-core peak: the least time for a bf16 entry's operations
+# (the kernels widen bf16 and add in f32 on the CUDA cores; bytes bound
+# them either way)
+BF16_FLOPS = 989e12
 # the main path: dlrm-rm2 at its published width, full batches of 64
 SERVE = dict(arch="dlrm_rm2", requests=512, batch=64, rate=64000.0,
              max_wait_us=1000.0, seed=0)
@@ -116,6 +135,27 @@ REFERENCE_P99_MS = {"recssd": "203153.24", "rmssd": "58200.97",
 # rounding bound L * 2^-24 * sum|x| is ~3e-4; bf16 inputs are widened exactly,
 # so they share it
 KERNEL_TOL = dict(rtol=1e-5, atol=3e-4)
+# a bf16 output (the bags and the fused interaction store the inputs'
+# dtype) is each side's f32 sum rounded once: besides KERNEL_TOL's
+# difference of the sums, the two roundings may land one bf16 ulp apart,
+# 2^-7 relative at most
+BF16_KERNEL_TOL = dict(rtol=2**-7, atol=3e-4)
+# a bf16 model's logits and scores, kernel route against plain route: the
+# reference's bf16 tolerance (tests/test_kernels.py)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+BF16_GRAD_REL_L2 = 2e-2
+# the recsys models on the card against the same function on the CPU, f32
+# with TF32 off: cuBLAS and the CPU's BLAS (and index_add_'s atomics) sum
+# in other orders, each product O(1e-7) relative; each gradient tensor is
+# held as a whole, with the margin a batch sum that cancels needs (two f32
+# routes of the DLRM training step have differed by 3e-4 on a bias
+# gradient: tools/train_grad_probe.py). A bias added
+# before a softmax over the positions it shifts (DIN's last attention
+# layer, BERT4Rec's key projections) has an exactly zero gradient, so on
+# either device its value is rounding noise; it is held joined to its
+# layer's weight.
+RECSYS_TOL = dict(rtol=1e-4, atol=1e-5)
+RECSYS_GRAD_REL_L2 = 1e-3
 # device operations queued behind one spin when timing: well under the
 # depth of the card's launch queue (about a thousand), past which the host
 # blocks until the spin ends
@@ -149,6 +189,11 @@ N_CANDIDATES = 1_000_000
 # read against the float64 plain-routed gradient, and printed.
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_REL_L2 = 1e-4
+# GraphSAGE's Reddit-scale graph (repro.configs.graphsage_reddit
+# "minibatch_lg"): synthetic, with Reddit's node count, features and mean
+# in-degree (114,615,892 edges / 232,965 nodes)
+SAGE_AVG_DEGREE = (configs.SAGE_SHAPES["minibatch_lg"]["n_edges"]
+                   // configs.SAGE_SHAPES["minibatch_lg"]["n_nodes"])
 
 
 def card_line() -> str:
@@ -180,6 +225,11 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor,
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              "version")
     return max_abs
+
+
+def out_tol(dtype: torch.dtype) -> dict:
+    """The kernel-against-plain tolerance for an output of ``dtype``."""
+    return KERNEL_TOL if dtype == torch.float32 else BF16_KERNEL_TOL
 
 
 def time_ms(fn, calls: list[tuple], reps: int = 3, launches: int = 1) -> float:
@@ -229,10 +279,31 @@ def time_ms(fn, calls: list[tuple], reps: int = 3, launches: int = 1) -> float:
     return total_ms / len(todo)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def sls_bytes(p: dict, inputs: list[dict]) -> tuple[float, float]:
+    """The bytes the SLS must move for the batches ``inputs`` of the
+    remapped model ``p``: per grouped launch (each batch's unique rows and
+    rank_of entries, its indices and bags) and per per-table launch (a
+    table's unique rows, its ranks and bags), in the tables' dtype."""
+    n_t, dim = len(p["tables"]), p["tables"][0].shape[1]
+    esize = p["tables"][0].element_size()
+    grouped = per_table = 0.0
+    for inp in inputs:
+        idx = inp["indices"]
+        b = idx.shape[0]
+        grouped += idx.numel() * 4 + b * n_t * dim * esize
+        for t in range(n_t):
+            ranks = lookup(p["rank_of"][t], idx[:, t, :])
+            rows = int(torch.unique(ranks).numel()) * dim * esize
+            grouped += rows + int(torch.unique(idx[:, t, :]).numel()) * 4
+            per_table += rows + ranks.numel() * 4 + b * dim * esize
+    return grouped / len(inputs), per_table / (len(inputs) * n_t)
 
 
 def phase_build() -> None:
@@ -268,7 +339,7 @@ def phase_check(gen: torch.Generator) -> dict[str, float]:
             e = compare(f"recflash_sls {str(dtype)[6:]} {case} "
                         f"(H={h}, V={v}, D={d}, B={b}, L={lk})",
                         recflash_sls(hot, cold, idx),
-                        ops.sls_ref(hot, cold, idx), KERNEL_TOL)
+                        ops.sls_ref(hot, cold, idx), out_tol(dtype))
             if dtype == torch.float32 and case == "mixed":
                 err["recflash_sls"] = e
         del table, hot, cold
@@ -281,7 +352,7 @@ def phase_check(gen: torch.Generator) -> dict[str, float]:
             x, bags = z[:, 0].contiguous(), z[:, 1:].contiguous()
             ef = compare(f"dot_interaction_fused {str(dtype)[6:]} {shape}",
                          dot_interaction_fused(x, bags),
-                         ops.fused_ref(x, bags), KERNEL_TOL)
+                         ops.fused_ref(x, bags), out_tol(dtype))
             if dtype == torch.float32 and shape == (64, 27, 64):
                 err["dot_interaction"], err["dot_interaction_fused"] = e, ef
     return err
@@ -321,12 +392,12 @@ def check_grouped(gen: torch.Generator) -> float:
                         f"rank_of)",
                         recflash_sls_grouped(tables, hot, idx, rank_of, desc),
                         ops.sls_grouped_ref(tables, hot, idx, rank_of),
-                        KERNEL_TOL)
+                        out_tol(dtype))
             first = e if first is None else first
         ranks = cases["mixed"]          # any ids in [0, V) serve as ranks
         compare(f"recflash_sls_grouped {str(dtype)[6:]} ranks, no rank_of",
                 recflash_sls_grouped(tables, hot, ranks),
-                ops.sls_grouped_ref(tables, hot, ranks), KERNEL_TOL)
+                ops.sls_grouped_ref(tables, hot, ranks), out_tol(dtype))
         del tables, desc
     return first
 
@@ -510,26 +581,21 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
     # every batch of the serve run, and every (batch, table) of it, with its
     # real ids and ranks
     grouped_calls, bag_calls, sls_calls, lib_calls = [], [], [], []
-    g_bytes = sls_bytes = 0.0
     for inp in res.inputs:
         idx = inp["indices"]
         grouped_calls.append((p["tables"], p["hot_sizes"], idx, p["rank_of"],
                               p["sls_desc"]))
         bag_calls.append((p, idx))
-        b = idx.shape[0]
-        g_bytes += idx.numel() * 4 + b * n_t * dim * 4
         for t in range(n_t):
             ranks = lookup(p["rank_of"][t], idx[:, t, :])
             stored, h = p["tables"][t], p["hot_sizes"][t]
             sls_calls.append((stored[:h], stored[h:], ranks))
             lib_calls.append((ranks, stored))
-            rows = int(torch.unique(ranks).numel()) * dim * 4
-            g_bytes += rows + int(torch.unique(idx[:, t, :]).numel()) * 4
-            sls_bytes += rows + ranks.numel() * 4 + b * dim * 4
-    n_b, n = len(grouped_calls), len(sls_calls)
+    n_b = len(grouped_calls)
+    g_bytes, t_bytes = sls_bytes(p, res.inputs)
     flops = SERVE["batch"] * lk * dim
-    g_bound, g_by = bound_ms(g_bytes / n_b, n_t * flops)
-    sls_bound, sls_by = bound_ms(sls_bytes / n, flops)
+    g_bound, g_by = bound_ms(g_bytes, n_t * flops)
+    sls_bound, sls_by = bound_ms(t_bytes, flops)
     # the fused interaction's real inputs: bottom MLP outputs and bags
     fused_calls = [(mlp(p["bot"], inp["dense"]), dlrm.bags(p, inp["indices"]))
                    for inp in res.inputs]
@@ -604,9 +670,9 @@ def phase_time(res: serve_mod.ServeResult, launches: dict[str, int],
                  bound_ms=dot_bound, bound_by=dot_by, library_ms=bmm_ms)]),
     ]
     print(f"[time] recflash_sls_grouped over the {n_b} batches of the serve "
-          f"run: mean {g_bytes / n_b / 1e6:.3f} MB of unique rows, unique "
+          f"run: mean {g_bytes / 1e6:.3f} MB of unique rows, unique "
           f"rank_of entries, indices and output per batch; per-table "
-          f"launches: mean {sls_bytes / n / 1e6:.3f} MB")
+          f"launches: mean {t_bytes / 1e6:.3f} MB")
     print(f"[time] torch.bmm alone on the interaction's z ({b}, {t}, {dim}) "
           f"f32: {bmm_ms * 1e3:.2f} us")
     for r in records:
@@ -675,20 +741,21 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return err / ref if ref else (0.0 if err == 0 else float("inf"))
 
 
-def check_tensors(label: str, got, want) -> float:
+def check_tensors(label: str, got, want, limit: float = GRAD_REL_L2
+                  ) -> float:
     """Each tensor of ``got`` against its counterpart in ``want``: finite,
-    and ||got - want|| <= GRAD_REL_L2 * ||want|| (a zero ``want`` must be
+    and ||got - want|| <= limit * ||want|| (a zero ``want`` must be
     matched exactly). Returns the largest relative error."""
     worst = 0.0
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
         rel = _rel(a, b)
         worst = max(worst, rel)
-        if rel > GRAD_REL_L2 or not torch.isfinite(a).all():
+        if rel > limit or not torch.isfinite(a).all():
             raise AssertionError(f"{label}: tensor {i} {tuple(a.shape)} "
                                  f"differs: relative error {rel:.3e} > "
-                                 f"{GRAD_REL_L2}")
+                                 f"{limit}")
     print(f"[check] {label}: {len(got)} tensors, largest relative error "
-          f"||got - want|| / ||want|| {worst:.3e} (limit {GRAD_REL_L2}) ok")
+          f"||got - want|| / ||want|| {worst:.3e} (limit {limit}) ok")
     return worst
 
 
@@ -1142,6 +1209,449 @@ def phase_sharded(served: dict, card: str) -> dict:
                 one_ms=one_ms, errs=errs, grad_err=grad_err)
 
 
+def call_ms(fn, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn()`` between two CUDA events around
+    ``reps`` back-to-back calls, after a warm call: the card's view of a
+    call, host issue included where the host is slower than the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _grads(fn, params) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The loss ``fn(params)`` and its gradient with respect to every leaf
+    of ``params``."""
+    leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
+    loss = fn(tree.unflatten(params, leaves))
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def _to(tree_, device):
+    return tree.unflatten(tree_, [x.to(device) for x in tree.leaves(tree_)])
+
+
+def _join_softmax_biases(params, grads: list[torch.Tensor],
+                         biases: tuple[str, ...]) -> list[torch.Tensor]:
+    """``grads`` (in the leaf order of ``params``), each alone, except that
+    the gradient of each bias path in ``biases`` is joined (flattened) to
+    that of its layer's ``w``."""
+    paths = [path for path, _ in tree.flatten_with_path(params)]
+    by_path = dict(zip(paths, grads, strict=True))
+    out = []
+    for path in paths:
+        if path in biases:
+            continue
+        g = by_path[path]
+        bias = path[:-len("['w']")] + "['b']"
+        if path.endswith("['w']") and bias in biases:
+            g = torch.cat([g.reshape(-1), by_path[bias].reshape(-1)])
+        out.append(g)
+    return out
+
+
+def phase_bf16(res: serve_mod.ServeResult, card: str) -> dict:
+    """dlrm-rm2 at full width in bf16, remap on: the served model cast to
+    bf16. The three kernel entries in bf16 against their plain versions at
+    the serve shapes; then the path, counted: the serve lane's batches
+    (bf16 dense features), one retrieval of 1 x 1M and one training step at
+    batch 4096; checked against the plain route and timed."""
+    cfg, p32 = res.cfg, res.params
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    trainable = {k: tree.tree_map(lambda x: x.to(bf), p32[k])
+                 for k in ("tables", "bot", "top")}
+    rank_of, hot = p32["rank_of"], p32["hot_sizes"]
+    p = dlrm.add_remap(trainable, rank_of, hot)
+    torch.cuda.synchronize()
+    table_gb = sum(t.numel() * t.element_size() for t in p["tables"]) / 1e9
+    print(f"[bf16] {cfg.name}: {cfg.n_tables} tables x {cfg.n_rows[0]} rows "
+          f"x {cfg.embed_dim} bf16 ({table_gb:.2f} GB) and bf16 MLPs on the "
+          f"card, remap on; cast from the served f32 model in "
+          f"{time.perf_counter() - t0:.2f} s")
+    inputs = [{**inp, "dense": inp["dense"].to(bf)} for inp in res.inputs]
+    n_b = len(inputs)
+
+    # each entry in bf16 against its plain version at the serve shapes
+    idx = inputs[0]["indices"]
+    err = {}
+    got = recflash_sls_grouped(p["tables"], hot, idx, rank_of, p["sls_desc"])
+    err["recflash_sls_grouped"] = compare(
+        f"bf16 recflash_sls_grouped, serve batch 0 ({cfg.n_tables} tables, "
+        f"B={idx.shape[0]}, L={cfg.lookups}, rank_of)", got,
+        ops.sls_grouped_ref(p["tables"], hot, idx, rank_of), BF16_KERNEL_TOL)
+    st, h = p["tables"][0], hot[0]
+    ranks0 = lookup(rank_of[0], idx[:, 0, :])
+    got1 = recflash_sls(st[:h], st[h:], ranks0)
+    err["recflash_sls"] = compare(
+        f"bf16 recflash_sls, serve batch 0 table 0 (H={h})", got1,
+        ops.sls_ref(st[:h], st[h:], ranks0), BF16_KERNEL_TOL)
+    x = mlp(p["bot"], inputs[0]["dense"])
+    bags = dlrm.bags(p, idx)
+    got2 = dot_interaction_fused(x, bags)
+    err["dot_interaction_fused"] = compare(
+        f"bf16 dot_interaction_fused, serve batch 0 {tuple(bags.shape)}",
+        got2, ops.fused_ref(x, bags), BF16_KERNEL_TOL)
+    if not got.dtype == got1.dtype == got2.dtype == bags.dtype == bf:
+        raise AssertionError("a bf16 entry did not return bf16")
+
+    # the path, counted: serve batches, one retrieval, one training step
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rbatch = {"dense": torch.randn(1, cfg.n_dense, generator=gen,
+                                   device="cuda").to(bf),
+              "indices": idx[:1],
+              "candidates": torch.randint(0, cfg.n_rows[-1], (N_CANDIDATES,),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32)}
+    tb = train_mod.make_batch_fn(cfg, TRAIN["batch"], TRAIN["seed"],
+                                 torch.device("cuda"))(0)
+    tb = {**tb, "dense": tb["dense"].to(bf)}
+    opt = optim.partitioned(
+        lambda ks: "table" if "tables" in ks else "dense",
+        {"table": optim.adagrad(TRAIN["lr_table"], rowwise=True),
+         "dense": optim.adamw(TRAIN["lr"])})
+
+    def loss_fn(q, batch, plain=False):
+        return dlrm.loss(dlrm.add_remap(q, rank_of, hot), batch, cfg,
+                         plain=plain)
+
+    step_fn = train_mod.make_step(opt, loss_fn)
+    state0 = (trainable, opt.init(trainable), torch.zeros((), device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        logits = [dlrm.forward(p, inp, cfg) for inp in inputs]
+        scores = dlrm.retrieval_score(p, rbatch, cfg)
+    state1 = step_fn(state0, tb)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"recflash_sls_grouped": n_b + 2, "dot_interaction_fused": n_b + 2,
+            "recflash_sls": 1, "dot_interaction": 0}
+    print(f"[bf16] launches over the path ({n_b} serve batches, 1 retrieval, "
+          f"1 training step): {launches}; peak device memory {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"bf16 launch counts {launches} != {want}")
+    if not all(lg.dtype == bf and torch.isfinite(lg.float()).all()
+               for lg in logits + [scores]):
+        raise AssertionError("bf16 logits are not bf16 and finite")
+    errs = [compare(f"bf16 serve batch {i} logits vs the plain-routed "
+                    f"forward", lg, dlrm.forward(p, inp, cfg, plain=True),
+                    BF16_TOL) for i, (lg, inp) in enumerate(
+                        zip(logits, inputs, strict=True))]
+    r_err = compare(f"bf16 retrieval scores (1 x {N_CANDIDATES}) vs the "
+                    f"plain-routed version", scores,
+                    dlrm.retrieval_score(p, rbatch, cfg, plain=True),
+                    BF16_TOL)
+    new_params, new_state, step_loss = state1
+    acc = sorted({str(x.dtype)[6:] for x in tree.leaves(new_state)
+                  if x.is_floating_point()})
+    kinds = sorted({str(x.dtype)[6:] for x in tree.leaves(new_params)})
+    print(f"[bf16] training step at batch {TRAIN['batch']}: loss "
+          f"{float(step_loss):.6f}; params after the step {kinds}; "
+          f"optimizer state (row-wise adagrad accumulators, AdamW moments) "
+          f"{acc}")
+    if not np.isfinite(float(step_loss)) or kinds != ["bfloat16"] or \
+            acc != ["float32"]:
+        raise AssertionError("the bf16 training step's loss, params or "
+                             "optimizer state are wrong")
+    del state1, new_params, new_state
+    loss_k, g_k = _grads(lambda q: loss_fn(q, tb), trainable)
+    loss_p, g_p = _grads(lambda q: loss_fn(q, tb, plain=True), trainable)
+    compare("bf16 train loss through the Functions vs the plain-routed "
+            "loss", loss_k, loss_p, BF16_TOL)
+    if not all(g.dtype == bf for g in g_k):
+        raise AssertionError("a bf16 parameter's gradient is not bf16")
+    grad_err = check_tensors("bf16 train gradients through the Functions vs "
+                             "autograd of the plain-routed forward", g_k,
+                             g_p, BF16_GRAD_REL_L2)
+    del g_k, g_p
+
+    # times, CUDA events
+    grouped_calls = [(p["tables"], hot, inp["indices"], rank_of,
+                      p["sls_desc"]) for inp in inputs]
+    sls_calls, lib_calls = [], []
+    for t in range(cfg.n_tables):
+        r = lookup(rank_of[t], idx[:, t, :])
+        sls_calls.append((p["tables"][t][:hot[t]], p["tables"][t][hot[t]:],
+                          r))
+        lib_calls.append((r, p["tables"][t]))
+    fused_calls = [(mlp(p["bot"], inp["dense"]), dlrm.bags(p, inp["indices"]))
+                   for inp in inputs]
+    b, t_v, dim, lk = idx.shape[0], cfg.n_vectors, cfg.embed_dim, cfg.lookups
+    g_bytes, t_bytes = sls_bytes(p, inputs)
+    g_bound, g_by = bound_ms(g_bytes, cfg.n_tables * b * lk * dim,
+                             BF16_FLOPS)
+    s_bound, s_by = bound_ms(t_bytes, b * lk * dim, BF16_FLOPS)
+    n_tri = t_v * (t_v - 1) // 2
+    f_bound, f_by = bound_ms(b * t_v * dim * 2 + b * (dim + n_tri) * 2,
+                             2 * b * n_tri * dim, BF16_FLOPS)
+    kernels = {
+        "recflash_sls_grouped": dict(
+            ms=time_ms(recflash_sls_grouped, grouped_calls, reps=20),
+            plain_ms=time_ms(ops.sls_grouped_ref,
+                             [c[:4] for c in grouped_calls], reps=1,
+                             launches=4 * cfg.n_tables + lk + 2),
+            bound_ms=g_bound, bound_by=g_by, library_ms=None,
+            max_abs_err=err["recflash_sls_grouped"]),
+        "recflash_sls": dict(
+            ms=time_ms(recflash_sls, sls_calls),
+            plain_ms=time_ms(ops.sls_ref, sls_calls, reps=1,
+                             launches=lk + 4),
+            bound_ms=s_bound, bound_by=s_by,
+            library_ms=time_ms(
+                lambda i, w: F.embedding_bag(i, w, mode="sum"), lib_calls,
+                launches=6),
+            max_abs_err=err["recflash_sls"]),
+        "dot_interaction_fused": dict(
+            ms=time_ms(dot_interaction_fused, fused_calls, reps=50),
+            plain_ms=time_ms(ops.fused_ref, fused_calls, reps=50,
+                             launches=10),
+            bound_ms=f_bound, bound_by=f_by, library_ms=None,
+            max_abs_err=err["dot_interaction_fused"]),
+    }
+    for name, k in kernels.items():
+        lib = ("" if k["library_ms"] is None else
+               f", library {k['library_ms'] * 1e3:.2f} us")
+        print(f"[bf16] {name}: {k['ms'] * 1e3:.2f} us/launch (plain "
+              f"{k['plain_ms'] * 1e3:.2f} us{lib}, bound "
+              f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}) on {card}")
+    with torch.inference_mode():
+        serve_ms = call_ms(lambda: [dlrm.forward(p, inp, cfg)
+                                    for inp in inputs], reps=5) / n_b
+        retrieval_ms = time_ms(lambda: dlrm.retrieval_score(p, rbatch, cfg),
+                               [()], reps=5, launches=24)
+    step_ms = call_ms(lambda: step_fn(state0, tb), reps=3)
+    print(f"[bf16] on {card}, CUDA events: serve step (kernels), warm, per "
+          f"batch of {b}: {serve_ms:.3f} ms (5 passes over the "
+          f"{n_b} batches); retrieval {retrieval_ms:.3f} ms per 1 x "
+          f"{N_CANDIDATES} call; training step (forward, backward, "
+          f"optimizer) at batch {TRAIN['batch']}: {step_ms:.1f} ms")
+    return dict(launches=launches, kernels=kernels, serve_ms=serve_ms,
+                retrieval_ms=retrieval_ms, step_ms=step_ms,
+                logit_err=max(errs), retrieval_err=r_err, grad_err=grad_err,
+                peak_gib=peak)
+
+
+def _din_batch(cfg, b: int, rng: np.random.Generator, labels: bool) -> dict:
+    lens = rng.integers(1, cfg.seq_len + 1, b)
+    batch = {"hist": rng.integers(0, cfg.n_items, (b, cfg.seq_len)),
+             "hist_mask": np.arange(cfg.seq_len)[None, :] < lens[:, None],
+             "target": rng.integers(0, cfg.n_items, b),
+             "profile": rng.standard_normal((b, cfg.n_profile)
+                                            ).astype(np.float32)}
+    if labels:
+        batch["labels"] = (rng.random(b) > 0.5).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _bert_batch(cfg, b: int, rng: np.random.Generator, n_mask: int = 0
+                ) -> dict:
+    """Item sequences padded at the front to random lengths; with
+    ``n_mask``, that many distinct positions of each are masked (item 0)
+    and their ids become the cloze targets."""
+    t = cfg.seq_len
+    items = rng.integers(1, cfg.n_items, (b, t))
+    lens = rng.integers(max(n_mask, 2), t + 1, b)
+    batch = {"pad_mask": np.arange(t)[None, :] >= (t - lens)[:, None]}
+    if n_mask:
+        pos = np.sort(np.stack([t - 1 - rng.choice(n, n_mask, replace=False)
+                                for n in lens]), axis=1)
+        batch["mask_pos"] = pos
+        batch["targets"] = np.take_along_axis(items, pos, 1)
+        batch["target_mask"] = np.ones((b, n_mask), bool)
+        np.put_along_axis(items, pos, cfg.mask_token, 1)
+    batch["items"] = items
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def phase_recsys(card: str) -> dict:
+    """DIN, BERT4Rec and GraphSAGE at the reference's configs: each run on
+    the card and held against the same port function on the CPU with the
+    same params; timed with CUDA events. None launches a kernel of the
+    port."""
+    from repro_torch.data.sampler import CSRGraph, sample_blocks
+    from repro_torch.models import bert4rec, din, graphsage
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out: dict = {}
+    reset_counts()
+
+    def on_card(batch):
+        return {k: (v.to(cuda) if torch.is_tensor(v) else _to(v, cuda))
+                for k, v in batch.items()}
+
+    def both(label, fn, params, batch, grads=False, biases=()):
+        """``fn`` on the card and on the CPU, held together (with the
+        gradients of ``biases`` joined to their layers' weights); the
+        card's ms per call."""
+        pc = _to(params, cuda)
+        bc = on_card(batch)
+        if grads:
+            got, g_got = _grads(lambda q: fn(q, bc), pc)
+            want, g_want = _grads(lambda q: fn(q, batch), params)
+            compare(f"{label} loss, card vs CPU", got, want.to(cuda),
+                    RECSYS_TOL)
+            err = check_tensors(
+                f"{label} gradients, card vs CPU",
+                _join_softmax_biases(params, g_got, biases),
+                _join_softmax_biases(params, [g.to(cuda) for g in g_want],
+                                     biases), RECSYS_GRAD_REL_L2)
+            ms = call_ms(lambda: _grads(lambda q: fn(q, bc), pc), reps=3)
+        else:
+            with torch.inference_mode():
+                got = fn(pc, bc)
+                err = compare(f"{label}, card vs CPU", got,
+                              fn(params, batch).to(cuda), RECSYS_TOL)
+                ms = call_ms(lambda: fn(pc, bc))
+        print(f"[recsys] {label}: {ms:.3f} ms per call on {card}")
+        out[label] = dict(ms=ms, err=err)
+
+    # DIN at din_arch.CONFIG
+    cfg = configs.DIN
+    params = din.init(0, cfg, device="cpu")
+    shapes = configs.RECSYS_SHAPES
+    both(f"din forward, serve_p99 (batch {shapes['serve_p99']['batch']})",
+         lambda q, b: din.forward(q, b, cfg), params,
+         _din_batch(cfg, shapes["serve_p99"]["batch"], rng, False))
+    both(f"din loss and gradients, batch {TRAIN['batch']}",
+         lambda q, b: din.loss(q, b, cfg), params,
+         _din_batch(cfg, TRAIN["batch"], rng, True), grads=True,
+         biases=(f"['attn'][{len(cfg.attn_mlp)}]['b']",))
+    user = _din_batch(cfg, 1, rng, False)
+    cands = torch.from_numpy(rng.integers(0, cfg.n_items, N_CANDIDATES))
+    rb = {"hist": user["hist"], "hist_mask": user["hist_mask"],
+          "profile": user["profile"], "candidates": cands}
+    pc, rbc = _to(params, cuda), on_card(rb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        scores = din.retrieval_score(pc, rbc, cfg)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # each candidate's score depends on its own row alone, so the CPU
+        # scores a sample of them
+        n_sel = min(8192, N_CANDIDATES)
+        sel = torch.from_numpy(rng.choice(N_CANDIDATES, n_sel,
+                                          replace=False))
+        err = compare(f"din retrieval (1 x {N_CANDIDATES}, chunks of "
+                      f"{din.RETRIEVAL_CHUNK}) at {n_sel} sampled "
+                      f"candidates, "
+                      f"card vs CPU", scores[sel.to(cuda)],
+                      din.retrieval_score(params, {**rb, "candidates":
+                                                   cands[sel]}, cfg).to(cuda),
+                      RECSYS_TOL)
+        ms = call_ms(lambda: din.retrieval_score(pc, rbc, cfg), reps=2)
+    print(f"[recsys] din retrieval, 1 x {N_CANDIDATES} in chunks of "
+          f"{din.RETRIEVAL_CHUNK}: {ms:.3f} ms per call on {card}; peak "
+          f"device memory above the model {peak_gb:.2f} GB")
+    out["din retrieval"] = dict(ms=ms, err=err, peak_gb=peak_gb)
+    del pc, rbc, scores
+
+    # BERT4Rec at its own config (26,744 items, d 64, seq 200)
+    cfg = configs.BERT4REC
+    params = bert4rec.init(0, cfg, device="cpu")
+    both(f"bert4rec score, serve_p99 (batch {shapes['serve_p99']['batch']})",
+         lambda q, b: bert4rec.score(q, b, cfg), params,
+         _bert_batch(cfg, shapes["serve_p99"]["batch"], rng))
+    both(f"bert4rec cloze loss and gradients, batch 1024, "
+         f"{configs.BERT4REC_N_MASK} masked positions",
+         lambda q, b: bert4rec.loss(q, b, cfg), params,
+         _bert_batch(cfg, 1024, rng, configs.BERT4REC_N_MASK), grads=True,
+         biases=tuple(f"['blocks'][{i}]['wk']['b']"
+                      for i in range(cfg.n_blocks)))
+    rb = {**_bert_batch(cfg, 1, rng),
+          "candidates": torch.from_numpy(rng.integers(0, cfg.n_items,
+                                                      N_CANDIDATES))}
+    both(f"bert4rec retrieval, 1 x {N_CANDIDATES} candidate ids",
+         lambda q, b: bert4rec.retrieval_score(q, b, cfg), params, rb)
+
+    # GraphSAGE: Reddit-scale sampled training on a synthetic graph
+    cfg = configs.CFG_REDDIT
+    shp = configs.SAGE_SHAPES["minibatch_lg"]
+    n, deg = shp["n_nodes"], SAGE_AVG_DEGREE
+    t0 = time.perf_counter()
+    graph = CSRGraph.random(n, deg, cfg.d_in, cfg.n_classes, seed=0)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = sample_blocks(graph, rng.choice(n, shp["batch_nodes"],
+                                             replace=False),
+                           cfg.fanouts, rng)
+    t_sample = time.perf_counter() - t0
+    del graph
+    blocks = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                  else [torch.from_numpy(x) for x in v])
+              for k, v in blocks.items()}
+    print(f"[recsys] graphsage reddit graph: {n} nodes x {deg} in-edges "
+          f"each on average ({n * deg} edges), {cfg.d_in} features, built "
+          f"on the host in {t_graph:.1f} s; {shp['batch_nodes']} seeds "
+          f"sampled with fanouts {cfg.fanouts} in {t_sample:.2f} s: "
+          f"{blocks['feats'].shape[0]} input nodes, blocks "
+          f"{[tuple(x.shape) for x in blocks['nbrs']]}")
+    params = graphsage.init(0, cfg, device="cpu")
+    both(f"graphsage reddit sampled loss and gradients, "
+         f"{shp['batch_nodes']} seeds, fanouts {cfg.fanouts}",
+         lambda q, b: graphsage.loss_node(q, b, cfg, "sampled"), params,
+         blocks, grads=True)
+    out["graphsage reddit set-up s"] = dict(graph=t_graph, sample=t_sample)
+
+    # Cora-sized full graph
+    cfg = configs.CFG_CORA
+    shp = configs.SAGE_SHAPES["full_graph_sm"]
+    n, e = shp["n_nodes"], shp["n_edges"]
+    train = np.zeros(n, np.float32)
+    train[rng.choice(n, 140, replace=False)] = 1.0
+    batch = {"feats": torch.from_numpy(rng.standard_normal(
+                 (n, shp["d_feat"])).astype(np.float32)),
+             "edge_src": torch.from_numpy(rng.integers(0, n, e)),
+             "edge_dst": torch.from_numpy(rng.integers(0, n, e)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.n_classes, n)),
+             "train_mask": torch.from_numpy(train)}
+    params = graphsage.init(1, cfg, device="cpu")
+    both(f"graphsage cora full-graph loss and gradients ({n} nodes, {e} "
+         f"edges)", lambda q, b: graphsage.loss_node(q, b, cfg, "full"),
+         params, batch, grads=True)
+
+    # batched molecule graphs
+    cfg = configs.CFG_MOLECULE
+    shp = configs.SAGE_SHAPES["molecule"]
+    b, n, e = shp["batch"], shp["n_nodes"], shp["n_edges"]
+    sizes = rng.integers(n // 2, n + 1, b)
+    batch = {"x": torch.from_numpy(rng.standard_normal(
+                 (b, n, cfg.d_in)).astype(np.float32)),
+             "edges": torch.from_numpy(np.stack([rng.integers(0, s, (e, 2))
+                                                 for s in sizes])),
+             "edge_mask": torch.from_numpy(rng.random((b, e)) < 0.9),
+             "node_mask": torch.from_numpy(np.arange(n)[None, :]
+                                           < sizes[:, None]),
+             "labels": torch.from_numpy(rng.integers(0, cfg.n_classes, b))}
+
+    def molecule_loss(q, bt):
+        logits = graphsage.forward_batched_graphs(
+            q, bt["x"], bt["edges"], bt["edge_mask"], bt["node_mask"], cfg)
+        logp = torch.log_softmax(logits.float(), -1)
+        return -logp.gather(1, bt["labels"][:, None]).mean()
+
+    params = graphsage.init(2, cfg, device="cpu")
+    both(f"graphsage molecule loss and gradients ({b} graphs x {n} nodes x "
+         f"{e} edges)", molecule_loss, params, batch, grads=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[recsys] launches of the port's kernels over the phase: "
+          f"{launches}")
+    if any(launches.values()):
+        raise AssertionError("the recsys models launched a DLRM kernel")
+    return dict(launches=launches, results=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1159,6 +1669,7 @@ def main() -> int:
     records = phase_time(res, launches, err)
     phase_profile(res)
     check_report(res)
+    bf16 = phase_bf16(res, card)
     served = {k: v.clone() for k, v in res.inputs[0].items()}
     del res
     gc.collect()
@@ -1169,14 +1680,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded = phase_sharded(served, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recsys = phase_recsys(card)
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
-               "sharded": sharded["launches"]}
+               "sharded": sharded["launches"], "bf16": bf16["launches"],
+               "recsys": recsys["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]
             e["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
             e["launches"] = sum(e["launches_by_path"].values())
+            if name in bf16["kernels"]:
+                e["bf16"] = bf16["kernels"][name]
     for r in records:
         for e in [r, *r["entries"]]:
             yard = (f"library {e['library_ms'] * 1e3:.2f} us"
@@ -1196,6 +1713,14 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sharded["fwd_ms"].items())
           + "; training forward + backward at batch 4096: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in sharded["step_ms"].items()))
+    print(f"[bf16] on {card}: serve step {bf16['serve_ms']:.3f} ms per "
+          f"batch of 64, retrieval {bf16['retrieval_ms']:.3f} ms, training "
+          f"step {bf16['step_ms']:.1f} ms at batch {TRAIN['batch']}; logits "
+          f"vs plain {bf16['logit_err']:.3e}, gradients "
+          f"{bf16['grad_err']:.3e} relative")
+    print(f"[recsys] on {card}: "
+          + "; ".join(f"{k} {v['ms']:.3f} ms" for k, v in
+                      recsys["results"].items() if "ms" in v))
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

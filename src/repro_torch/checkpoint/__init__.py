@@ -8,8 +8,11 @@ array is named by its leaf's path string (``repro_torch.tree``, the same as
 the reference and the other way round.
 
 Arrays are saved host-complete; ``restore`` puts each leaf on the device
-and dtype of its ``like`` leaf. bf16 leaves wait for a bf16 training path
-(A13): ``.npz`` has no bf16 type.
+and dtype of its ``like`` leaf. bf16 leaves are refused: ``.npz`` has no
+bf16 type, and the reference's checkpoints cannot round-trip one either
+(numpy stores it as raw void bytes that its restore cannot cast back), so
+a bf16 checkpoint would be a format of the port's own with no reference to
+restore into or from.
 
 The ``.npz`` is written one array at a time (the format ``np.savez``
 writes), so the host holds one leaf at a time, not the whole tree.
@@ -43,8 +46,10 @@ from repro_torch.distributed.shardings import block_index
 
 def _check(leaf) -> None:
     if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
-        raise TypeError("bf16 leaves cannot be checkpointed yet: .npz has no "
-                        "bf16 type (ROADMAP A13)")
+        raise TypeError("bf16 leaves cannot be checkpointed: .npz has no "
+                        "bf16 type, and the reference's checkpoints cannot "
+                        "round-trip one either (it stores raw bytes its "
+                        "restore cannot cast back)")
 
 
 def _host(leaf) -> np.ndarray:

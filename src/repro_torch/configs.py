@@ -1,12 +1,16 @@
-"""DLRM shapes: the model config, the paper's RMC classes, the registry
-archs the serving path takes and the recsys sharding rules.
+"""Model shapes: the DLRM config, the paper's RMC classes, the registry
+archs the serving path takes, the recsys sharding rules, and the shapes of
+the other recsys models (DIN, BERT4Rec, GraphSAGE).
 
 Copied from the reference: ``DLRMConfig``/``make_rmc``/RMC1-3
 (``repro.models.dlrm``), ``small_dlrm`` (``repro.launch.train``), the
 dlrm-mlperf and dlrm-rm2 shapes and the sharding rules
-(``repro.configs``). ``arch_shape`` is the arch resolution of
-``repro.serving.deployment``; ``arch_model_config`` goes through the
-port's own ``DeploymentConfig``.
+(``repro.configs``), the recsys cell shapes (``repro.configs.
+recsys_common.RECSYS_SHAPES``) and the DIN, BERT4Rec and GraphSAGE configs
+of ``repro.configs.{din_arch,bert4rec_arch,graphsage_reddit}`` (constants
+only, without the registry's bundles). ``arch_shape`` is the
+arch resolution of ``repro.serving.deployment``; ``arch_model_config`` goes
+through the port's own ``DeploymentConfig``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.distributed.shardings import P
+from repro_torch.models.bert4rec import Bert4RecConfig
+from repro_torch.models.din import DINConfig
+from repro_torch.models.graphsage import SAGEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +124,37 @@ def recsys_opt_rules(param_rules):
 # with 2D tables the accumulators shard as their rows do
 # (repro.configs.dlrm_mlperf.make_dlrm_bundle)
 OPT_RULES_2D = [("['table'][", P(("model", "data")))] + PARAM_RULES_2D
+
+
+# the recsys cells (repro.configs.recsys_common.RECSYS_SHAPES)
+RECSYS_SHAPES = {
+    "train_batch": dict(batch=65_536),
+    "serve_p99": dict(batch=512),
+    "serve_bulk": dict(batch=262_144),
+    "retrieval_cand": dict(batch=1, n_candidates=1_000_000),
+}
+
+# din (repro.configs.din_arch.CONFIG): embed 18, seq 100, 1M items
+DIN = DINConfig(n_items=1_000_000)
+# bert4rec: the model's own default (ML-20m's 26,744 items), and the
+# registry's cloze positions per sample (repro.configs.bert4rec_arch)
+BERT4REC = Bert4RecConfig()
+BERT4REC_N_MASK = 20
+
+# graphsage (repro.configs.graphsage_reddit): per-shape model configs
+# (d_in and classes follow each shape's dataset) and the shapes
+CFG_REDDIT = SAGEConfig(d_in=602, n_classes=41, fanouts=(15, 10))
+CFG_CORA = SAGEConfig(d_in=1433, n_classes=7)
+CFG_PRODUCTS = SAGEConfig(d_in=100, n_classes=47)
+CFG_MOLECULE = SAGEConfig(d_in=16, n_classes=2)
+SAGE_SHAPES = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433),
+    "minibatch_lg": dict(n_nodes=232_965, n_edges=114_615_892,
+                         batch_nodes=1024, fanouts=(15, 10)),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_860_352,  # pad /512
+                         d_feat=100),
+    "molecule": dict(n_nodes=30, n_edges=64, batch=128),
+}
 
 
 def arch_shape(name: str) -> DLRMConfig:

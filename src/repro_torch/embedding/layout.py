@@ -86,6 +86,15 @@ def lookup_remapped(stored: torch.Tensor, rank_of: torch.Tensor,
 
 def lookup(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """``table[indices]`` along axis 0 for int32 or int64 ``indices`` of any
-    shape (``jnp.take(table, indices, axis=0)``)."""
-    flat = torch.index_select(table, 0, indices.reshape(-1))
+    shape, each index first clamped into ``[0, len(table))``
+    (``jnp.take(table, indices, axis=0, mode="clip")``).
+
+    The clamp is the port's one contract for indices out of range, the CUDA
+    SLS kernel's too: an id below 0 reads row 0, an id at or past the end
+    the last row. The reference's ``jnp.take`` fills instead (its default
+    mode): -1 reads the last row there and an id at or past the end gives
+    NaN.
+    """
+    idx = indices.reshape(-1).clamp(0, table.shape[0] - 1)
+    flat = torch.index_select(table, 0, idx)
     return flat.reshape(*indices.shape, *table.shape[1:])

@@ -21,6 +21,16 @@ The collectives are differentiable (``repro_torch.distributed.mesh``), so a
 table block's gradient is the block of the reference's ``jax.grad`` once
 ``shardings.sync_grads`` has summed it over the axes the table is
 replicated on.
+
+Ids out of range follow the reference's ``shard_map`` bodies, not the
+single-device routes' clamp (``embedding.layout.lookup``). An id below 0 or
+at or past V is owned by no shard, so (read on 2 gloo ranks):
+
+  * without a remap (``sharded_embedding_bag``, and the 2D bag without
+    ``rank_of``) every rank zeroes its row: the bag leaves that id out;
+  * through the two-phase remap (``sharded_remapped_bag``, the 2D bag with
+    ``rank_of``) every rank translates it to rank 0, so it reads stored row
+    0, the hottest row.
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@
 // Computes, for z = [first; rest] of T rows of D per sample, row 0 from
 // `first` (B, D) and rows 1..T-1 from `rest` (B, T-1, D), f32 or bf16:
 // - full mode:  out (B, T, T) f32, out[b, i, j] = sum_d z[b,i,d] z[b,j,d];
-// - fused mode: out (B, D + T(T-1)/2) f32, columns [0, D) hold z[b, 0] (the
-//   bottom MLP's output) and the rest the strict upper triangle of the
-//   Gram in numpy.triu_indices(T, k=1) order: exactly what dlrm.interact
-//   returns, in one launch instead of a cat, a Gram, a triangle gather and
-//   a second cat.
+// - fused mode: out (B, D + T(T-1)/2) in the inputs' dtype, columns [0, D)
+//   hold z[b, 0] (the bottom MLP's output) and the rest the strict upper
+//   triangle of the Gram in numpy.triu_indices(T, k=1) order: exactly what
+//   dlrm.interact returns, in one launch instead of a cat, a Gram, a
+//   triangle gather and a second cat. Every dot is accumulated in f32; a
+//   bf16 output is rounded from it once, to nearest even, when it is
+//   stored (the reference's bf16 einsum also returns bf16).
 //
 // What bounds it on this card: bytes. At the dlrm-rm2 serving shape
 // (B=64, T=27, D=64, f32) the fused mode reads 442 KB and writes 106 KB,
@@ -52,6 +54,7 @@
 //   one value, written twice.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +67,12 @@ constexpr int kMaxSmem = 48 * 1024;  // static launch limit, no attribute
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// One value stored in the output's dtype (bf16: round to nearest even).
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -79,12 +88,14 @@ __host__ __device__ constexpr int pitch(int d, bool vec) {
 }
 
 // kD > 0: D known at compile time (a multiple of 4); kD == 0: d at run time.
-// aligned: f32 rows may be copied 16 bytes at a time.
-template <typename T, int kD, bool kFused>
+// aligned: f32 rows may be copied 16 bytes at a time. Out: T in the fused
+// mode, f32 in the full mode.
+template <typename T, int kD, bool kFused,
+          typename Out = std::conditional_t<kFused, T, float>>
 __global__ void __launch_bounds__(kMaxThreads)
     interaction_kernel(const T* __restrict__ first, long long s0,
                        const T* __restrict__ rest, long long s1,
-                       float* __restrict__ out, int t, int d_rt,
+                       Out* __restrict__ out, int t, int d_rt,
                        bool aligned) {
   extern __shared__ __align__(16) float zs[];
   constexpr bool kVec = kD > 0;
@@ -119,9 +130,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
   const int n_tri = t * (t - 1) / 2;
-  float* ob = out + b * (kFused ? d + n_tri : static_cast<long long>(t) * t);
+  Out* ob = out + b * (kFused ? d + n_tri : static_cast<long long>(t) * t);
   if (kFused) {
-    for (int k = threadIdx.x; k < d; k += blockDim.x) ob[k] = zs[k];
+    // zs holds the widened input, so a bf16 value goes back exactly
+    for (int k = threadIdx.x; k < d; k += blockDim.x) store(&ob[k], zs[k]);
   }
   const int n_pairs = nt * (nt + 1) / 2;
   for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
@@ -166,10 +178,11 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int i = i0 + u, j = j0 + v;
         if (i >= t || j >= t) continue;
         if (kFused) {
-          if (i < j) ob[d + i * t - i * (i + 1) / 2 + (j - i - 1)] = c[u][v];
+          // the index in int first, then one address computation
+          if (i < j) store(&ob[d + i * t - i * (i + 1) / 2 + (j - i - 1)], c[u][v]);
         } else {
-          ob[i * t + j] = c[u][v];
-          ob[j * t + i] = c[u][v];
+          store(&ob[i * t + j], c[u][v]);
+          store(&ob[j * t + i], c[u][v]);
         }
       }
     }
@@ -188,9 +201,10 @@ int launch(const void* first, long long s0, const void* rest, long long s1,
   const int n_pairs = nt * (nt + 1) / 2;
   int threads = (n_pairs + 31) / 32 * 32;
   threads = threads < 64 ? 64 : (threads > kMaxThreads ? kMaxThreads : threads);
+  using Out = std::conditional_t<kFused, T, float>;
   interaction_kernel<T, kD, kFused><<<batch, threads, smem, stream>>>(
       static_cast<const T*>(first), s0, static_cast<const T*>(rest), s1,
-      static_cast<float*>(out), t, d, aligned);
+      static_cast<Out*>(out), t, d, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,10 +245,11 @@ int by_mode(const void* first, long long s0, const void* rest, long long s1,
 
 // Row 0 of each sample at first + b * s0, rows 1..t-1 at rest + b * s1 +
 // (r - 1) * d (element strides); out (batch, t, t) f32 (fused = 0) or
-// (batch, d + t(t-1)/2) f32 (fused = 1), contiguous. dtype: 0 = float32,
-// 1 = bfloat16. aligned: 1 if both pointers are 16-byte aligned and both
-// strides a multiple of 16 bytes. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for what the kernel does not take.
+// (batch, d + t(t-1)/2) in the inputs' dtype (fused = 1), contiguous.
+// dtype: 0 = float32, 1 = bfloat16. aligned: 1 if both pointers are 16-byte
+// aligned and both strides a multiple of 16 bytes. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what the kernel does not
+// take.
 extern "C" int dot_interaction_launch(const void* first, long long s0,
                                       const void* rest, long long s1,
                                       void* out, int batch, int t, int d,

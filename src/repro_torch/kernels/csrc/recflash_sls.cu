@@ -8,11 +8,12 @@
 // (src/repro/models/dlrm.py:124), the paper's hash-table lookup.
 //
 // Computes, for every bag (b, t) of a batch:
-//   out[b, t, :] = sum_l row_t(rank_t(indices[b, t, l]))   in f32,
-// where rank_t(id) = rank_of_t[id], or id itself for a table given ranks,
-// and a rank r below hot_rows_t reads hot_t[r], any other cold_t[r -
-// hot_rows_t]. One table without rank_of is the per-table entry (the TPU
-// kernel's own contract).
+//   out[b, t, :] = sum_l row_t(rank_t(indices[b, t, l])),
+// added in f32 in lookup order and stored in the tables' dtype (f32 or
+// bf16, rounded to nearest even once, in the epilogue), where rank_t(id) =
+// rank_of_t[id], or id itself for a table given ranks, and a rank r below
+// hot_rows_t reads hot_t[r], any other cold_t[r - hot_rows_t]. One table
+// without rank_of is the per-table entry (the TPU kernel's own contract).
 //
 // What bounds it on this card: bytes. A bag reads L rows of D elements and
 // does L*D adds, far below the card's operations-per-byte line. At the
@@ -53,9 +54,15 @@
 //   while the 26 prefixes (12.7 MB) fit the 50 MB L2, which holds the hot
 //   rows after their first touch. This deviates from the VMEM-resident hot
 //   tier of DESIGN.md §2.2.
-// - An id outside [0, n_ids) and a rank outside [0, rows) are clamped into
-//   range, as XLA's gather clamps, so that a bad index cannot read outside
-//   a table.
+// - An id outside [0, n_ids) is clamped into that range before the rank_of
+//   translation, and a rank outside [0, rows) into that one, so that a bad
+//   index cannot read outside a table: -1 reads the first row, an id at or
+//   past the end the last. The plain versions clamp the same way
+//   (embedding/layout.py::lookup), so a CPU tensor and a CUDA tensor give
+//   one result. The reference's jnp.take fills instead (its default mode):
+//   -1 reads row V-1 there, and an id at or past V gives NaN.
+// - A bf16 bag is rounded from its f32 sum once, when it is stored: 8
+//   values are packed into one 16-byte store on the vector path.
 
 #include <cstdint>
 
@@ -89,6 +96,31 @@ __device__ __forceinline__ long long clamp_to(long long x, long long n) {
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// One sum stored in the output's dtype (bf16: round to nearest even).
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Two sums as the 32-bit word of two bf16 values (the lower-indexed element
+// in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+             << 16;
+}
+
+// The 16 / sizeof(T) sums of one 16-byte vector, stored as one vector.
+__device__ __forceinline__ void store_vec(float* dst, const float* acc) {
+  *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
+                                          const float* acc) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_bf16x2(acc[0], acc[1]), pack_bf16x2(acc[2], acc[3]),
+                 pack_bf16x2(acc[4], acc[5]), pack_bf16x2(acc[6], acc[7]));
 }
 
 // Adds the elements held in one 32-bit word of a row to acc.
@@ -142,7 +174,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     sls_kernel(const TableDesc* __restrict__ descs, TableDesc one,
                const int32_t* __restrict__ indices, long long s_b,
-               long long s_t, long long s_l, float* __restrict__ out,
+               long long s_t, long long s_l, T* __restrict__ out,
                int n_bags, int n_tables, int lookups, int dim, int group,
                int slots, int ranks_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -182,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (!live) return;
-  float* dst = out + static_cast<long long>(bag) * dim;
+  T* dst = out + static_cast<long long>(bag) * dim;
   if constexpr (kVec) {
     constexpr int kE = 16 / sizeof(T);
     uint4* ring = reinterpret_cast<uint4*>(smem + ranks_bytes) +
@@ -206,11 +238,7 @@ __global__ void __launch_bounds__(kThreads)
         if (next < lookups) cp_async16(slot, row_of<T>(d, ranks[next], dim) + col);
         cp_async_commit();
       }
-#pragma unroll
-      for (int e = 0; e < kE; e += 4) {
-        *reinterpret_cast<float4*>(dst + col + e) =
-            make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-      }
+      store_vec(dst + col, acc);
     }
   } else {
     for (int c = lane; c < dim; c += group) {
@@ -226,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
           if (l0 + u < lookups) acc += widen(r[u]);
         }
       }
-      dst[c] = acc;
+      store(dst + c, acc);
     }
   }
 }
@@ -234,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool kVec>
 int launch(const TableDesc* descs, const TableDesc& one,
            const int32_t* indices, long long s_b, long long s_t,
-           long long s_l, float* out, int batch, int n_tables, int lookups,
+           long long s_l, T* out, int batch, int n_tables, int lookups,
            int dim, cudaStream_t stream) {
   const int units = kVec ? dim / static_cast<int>(16 / sizeof(T)) : dim;
   int group = 1;
@@ -272,7 +300,8 @@ int launch(const TableDesc* descs, const TableDesc& one,
 // descs: n_tables TableDesc on the card, or nullptr for one table given by
 // hot, cold, hot_rows and rows, whose indices are ranks. indices (batch,
 // n_tables, lookups) int32 with element strides s_b, s_t, s_l; out (batch,
-// n_tables, dim) f32, contiguous. dtype: 0 = float32, 1 = bfloat16. vec: 1
+// n_tables, dim) in the tables' dtype, contiguous (16-byte aligned where vec
+// is 1). dtype: 0 = float32, 1 = bfloat16, of the tables and out. vec: 1
 // if dim and every table pointer allow 16-byte copies. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what the kernel does not
 // take (a bad dtype, more than 227 KB of shared memory).
@@ -286,15 +315,16 @@ extern "C" int recflash_sls_launch(const void* descs, const void* hot,
   const TableDesc* ds = static_cast<const TableDesc*>(descs);
   const TableDesc one{hot, cold, nullptr, hot_rows, rows, rows};
   const int32_t* idx = static_cast<const int32_t*>(indices);
-  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    float* o = static_cast<float*>(out);
     return vec ? launch<float, true>(ds, one, idx, s_b, s_t, s_l, o, batch,
                                      n_tables, lookups, dim, s)
                : launch<float, false>(ds, one, idx, s_b, s_t, s_l, o, batch,
                                       n_tables, lookups, dim, s);
   }
   if (dtype == 1) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
     return vec ? launch<__nv_bfloat16, true>(ds, one, idx, s_b, s_t, s_l, o,
                                              batch, n_tables, lookups, dim, s)
                : launch<__nv_bfloat16, false>(ds, one, idx, s_b, s_t, s_l, o,

@@ -84,10 +84,12 @@ def dot_interaction(z: torch.Tensor, block_b: int = 64) -> torch.Tensor:
 
 def dot_interaction_fused(bottom_out: torch.Tensor,
                           bags: torch.Tensor) -> torch.Tensor:
-    """bottom_out (B, D), bags (B, T-1, D) -> (B, D + T(T-1)/2) float32:
-    ``bottom_out``, then the strict upper triangle of the Gram of z =
-    [bottom_out; bags] in ``numpy.triu_indices(T, k=1)`` order, which is
-    what ``dlrm.interact`` returns for the dot interaction."""
+    """bottom_out (B, D), bags (B, T-1, D), both float32 or both bfloat16
+    -> (B, D + T(T-1)/2) in their dtype: ``bottom_out``, then the strict
+    upper triangle of the Gram of z = [bottom_out; bags] in
+    ``numpy.triu_indices(T, k=1)`` order, which is what ``dlrm.interact``
+    returns for the dot interaction. Each dot is accumulated in float32 and
+    a bf16 one rounded once (the reference's bf16 einsum returns bf16)."""
     if bottom_out.dim() != 2 or bags.dim() != 3 or \
             bags.shape[0] != bottom_out.shape[0] or \
             bags.shape[2] != bottom_out.shape[1]:
@@ -109,7 +111,7 @@ def dot_interaction_fused(bottom_out: torch.Tensor,
             (t > 2 and bags.stride(1) != d):
         raise ValueError("each sample's rows of bottom_out and bags must be "
                          "contiguous")
-    out = torch.empty((b, d + t * (t - 1) // 2), dtype=torch.float32,
+    out = torch.empty((b, d + t * (t - 1) // 2), dtype=bottom_out.dtype,
                       device=bottom_out.device)
     _launch(bottom_out, bottom_out.stride(0), bags.data_ptr(), bags.stride(0),
             out, t, d, fused=True)
@@ -125,10 +127,13 @@ def dot_interaction_fused_backward(grad: torch.Tensor, bottom_out: torch.Tensor,
     ``grad`` (B, D + T(T-1)/2) is split into the gradient of ``bottom_out``
     (its first D columns) and of the upper-triangle dots, which go into a
     (B, T, T) matrix S; then dz = (S + S^T) z for z = [bottom_out; bags],
-    ``d_bottom = grad[:, :D] + dz[:, 0]`` and ``d_bags = dz[:, 1:]``.
+    ``d_bottom = grad[:, :D] + dz[:, 0]`` and ``d_bags = dz[:, 1:]``,
+    computed in float32 (float64 for a float64 ``grad``) and returned in
+    the dtypes of ``bottom_out`` and ``bags``.
     """
     b, d = bottom_out.shape
     t = bags.shape[1] + 1
+    grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
     z = torch.cat([bottom_out[:, None, :], bags], dim=1).to(grad.dtype)
     iu, ju = torch.triu_indices(t, t, 1, device=grad.device)
     s = grad.new_zeros((b, t, t))

@@ -27,7 +27,14 @@ from repro_torch.kernels.recflash_sls import (
 
 def recflash_sls(hot, cold, indices, block_b: int = 8):
     """Two-tier SLS: hot (H,D) tier, cold (V-H,D) tier, indices (B,L) int32
-    ranks into [hot; cold] -> (B,D) float32 bag sums."""
+    ranks into [hot; cold] -> (B,D) bag sums in the tables' dtype, added in
+    float32.
+
+    A rank out of range is clamped into [0, V) on both devices: -1 reads
+    row 0. The reference (``repro.kernels.ops.recflash_sls``, whose oracle
+    is ``jnp.take``) differs there: its oracle reads row V-1 for -1 and
+    gives NaN for V and above.
+    """
     return _sls_kernel(hot, cold, indices, block_b=block_b)
 
 
@@ -35,7 +42,13 @@ def recflash_sls_grouped(tables, hot_sizes, indices, rank_of=None,
                          desc=None):
     """Two-tier SLS of all tables in one launch: stored tables split at
     ``hot_sizes``, indices (B, n_tables, L) int32 logical ids translated by
-    ``rank_of`` (or ranks) -> (B, n_tables, D) float32 bag sums."""
+    ``rank_of`` (or ranks) -> (B, n_tables, D) bag sums in the tables'
+    dtype, added in float32.
+
+    An id is clamped into [0, len(rank_of[t])) and a rank into [0, V_t), on
+    both devices. The reference forward's ``jnp.take`` fills instead: -1
+    reads the row of id V-1, and an id at or past V gives NaN.
+    """
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
         return RecFlashSLSGrouped.apply(hot_sizes, indices, rank_of, desc,
                                         *tables)
@@ -49,7 +62,8 @@ def dot_interaction(z, block_b: int = 64):
 
 def dot_interaction_fused(bottom_out, bags):
     """DLRM top-MLP input: bottom_out (B,D), bags (B,T-1,D) ->
-    (B, D + T*(T-1)/2), ``bottom_out`` then the upper-triangle dots."""
+    (B, D + T*(T-1)/2) in their dtype, ``bottom_out`` then the
+    upper-triangle dots (accumulated in float32)."""
     if torch.is_grad_enabled() and (bottom_out.requires_grad
                                     or bags.requires_grad):
         return DotInteractionFused.apply(bottom_out, bags)

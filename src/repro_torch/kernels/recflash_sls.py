@@ -17,6 +17,10 @@ tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
 tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA tensor
 it launches the kernel on the current stream or raises.
 
+Both entries add each bag in float32 in lookup order and return it in the
+tables' dtype (float32 or bfloat16). An id out of range is clamped into
+range on both devices (see ``recflash_sls_grouped``).
+
 ``RecFlashSLSGrouped`` gives the grouped entry a gradient for each stored
 table. The TPU kernel has none (the reference differentiates its plain
 ``jnp.take`` bags), so the backward is plain PyTorch on both devices:
@@ -135,7 +139,10 @@ def _vec_ok(dim: int, dtype: torch.dtype, ptrs) -> bool:
 def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
                  indices: torch.Tensor, block_b: int = 8) -> torch.Tensor:
     """Two-tier SLS of one table. hot (H,D), cold (V-H,D), indices (B,L)
-    int32 ranks into [hot; cold] -> (B,D) f32.
+    int32 ranks into [hot; cold] -> (B,D) in the tables' dtype, added in
+    float32. A rank outside [0, V) is clamped into it: -1 reads row 0, V
+    and above row V-1. (The TPU kernel reads ``hot[H-1]`` for -1, and the
+    reference's ``jnp.take`` fills: NaN at V and above.)
 
     ``block_b`` is the TPU kernel's batch tile and must divide B; the CUDA
     kernel serves 128 / (threads per bag) bags per block whatever it is.
@@ -164,7 +171,7 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     if not (hot.is_contiguous() and cold.is_contiguous()
             and indices.is_contiguous()):
         raise ValueError("hot, cold and indices must be contiguous")
-    out = torch.empty((b, d), dtype=torch.float32, device=hot.device)
+    out = torch.empty((b, d), dtype=hot.dtype, device=hot.device)
     _launch(0, (hot.data_ptr(), cold.data_ptr(), h, h + cold.shape[0]),
             indices[:, None, :], out, d, hot.dtype,
             _vec_ok(d, hot.dtype, (hot.data_ptr(), cold.data_ptr())))
@@ -184,7 +191,14 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     None). ``desc`` are the tables' descriptors from ``describe``; they are
     checked against the arguments (pointers, shapes, hot sizes), and built
     for this call when None.
-    Returns (B, n_tables, D) f32.
+    Returns (B, n_tables, D) in the tables' dtype, each bag added in
+    float32 in lookup order and rounded once.
+
+    Ids out of range are clamped, on both devices: an id into
+    [0, len(rank_of[t])) before the translation, a rank into [0, V_t). So
+    -1 reads the row of id 0 and an id at or past the end that of the last
+    id. The reference forward's ``jnp.take`` fills instead: -1 reads the
+    row of id V-1 there, and an id at or past V gives a NaN bag.
     """
     if desc is None:
         desc = describe(tables, hot_sizes, rank_of)
@@ -205,7 +219,7 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     b, n_t, _ = indices.shape
     d, dtype = tables[0].shape[1], tables[0].dtype
-    out = torch.empty((b, n_t, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n_t, d), dtype=dtype, device=dev)
     _launch(desc.tensor.data_ptr(), (0, 0, 0, 0), indices, out, d, dtype,
             desc.vec)
     recflash_sls_grouped.launches += 1
@@ -217,14 +231,16 @@ def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
     """Gradient of the grouped SLS with respect to each stored table.
 
     ``grad`` (B, n_tables, D) is the gradient of the bags; ``n_rows`` the
-    stored tables' row counts; ``indices`` and ``rank_of`` the forward's.
-    Returns per table a dense (V_t, D) tensor in ``grad``'s dtype: zeros,
+    stored tables' row counts; ``indices`` and ``rank_of`` the forward's,
+    clamped as the forward clamps them. Returns per table a dense (V_t, D)
+    tensor, accumulated in float32 (float64 for a float64 ``grad``): zeros,
     then each bag's gradient added at the rank of each of its lookups
     (``index_add_``), which is the dense gradient ``jax.grad`` gives through
     ``jnp.take``. A table whose ``needs`` entry is False gets None.
     """
     b, _, n_lk = indices.shape
     d = grad.shape[2]
+    grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
     out = []
     for t, v in enumerate(n_rows):
         if needs is not None and not needs[t]:
@@ -234,7 +250,7 @@ def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
         g = torch.zeros((v, d), dtype=grad.dtype, device=grad.device)
-        g.index_add_(0, idx.reshape(-1),
+        g.index_add_(0, idx.reshape(-1).clamp(0, v - 1),
                      grad[:, t, None, :].expand(b, n_lk, d).reshape(-1, d))
         out.append(g)
     return out
@@ -246,7 +262,8 @@ class RecFlashSLSGrouped(torch.autograd.Function):
 
     The forward is the entry itself (the kernel on a CUDA tensor, the plain
     version on a CPU tensor); the backward is
-    ``recflash_sls_grouped_backward``, plain PyTorch on both devices.
+    ``recflash_sls_grouped_backward``, plain PyTorch on both devices, each
+    table's gradient returned in the table's dtype.
     """
 
     @staticmethod

@@ -2,6 +2,11 @@
 
 The kernel wrappers run these for tensors on the CPU; ``chip_smoke.py`` holds
 each kernel against them on the card.
+
+Both follow the kernels' contracts: sums are taken in float32 (float64 for a
+float64 oracle) and returned in the inputs' dtype, a bf16 result rounded
+once from its float32 sum; an index out of range is clamped into range
+(``embedding.layout.lookup``), where the reference's ``jnp.take`` fills.
 """
 
 from __future__ import annotations
@@ -34,11 +39,12 @@ def recflash_sls_ref(hot: torch.Tensor, cold: torch.Tensor,
                      indices: torch.Tensor) -> torch.Tensor:
     """Two-tier SLS: ``hot`` (H, D) and ``cold`` (V-H, D) are the two tiers
     of the rank-ordered table, ``indices`` (B, L) ranks into the conceptual
-    concatenation [hot; cold]. Returns (B, D) bag sums in float32 (rows are
-    widened before the sum, as the reference oracle does), added in lookup
-    order (``sum_in_order``)."""
+    concatenation [hot; cold], each clamped into [0, V). Returns (B, D) bag
+    sums in the tables' dtype: rows are widened to float32 before the sum,
+    as the reference oracle does, added in lookup order (``sum_in_order``)
+    and rounded to the tables' dtype once."""
     table = _widen(torch.cat([hot, cold]))
-    return sum_in_order(lookup(table, indices))
+    return sum_in_order(lookup(table, indices)).to(hot.dtype)
 
 
 def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
@@ -46,16 +52,17 @@ def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
     """Two-tier SLS of every table of a batch: ``tables`` are the stored
     (rank-ordered) tables, each split at its ``hot_sizes`` entry; ``indices``
     (B, n_tables, L) are logical ids translated through ``rank_of[t]`` (the
-    paper's hash table), or ranks when ``rank_of`` is None. Returns
-    (B, n_tables, D) float32, every table's bags added in one
-    ``sum_in_order`` (L launches, not n_tables * L)."""
+    paper's hash table), or ranks when ``rank_of`` is None; an id is clamped
+    into [0, len(rank_of[t])) and a rank into [0, V_t). Returns
+    (B, n_tables, D) in the tables' dtype, every table's bags added in
+    float32 in one ``sum_in_order`` (L launches, not n_tables * L)."""
     rows = []
     for t, (stored, h) in enumerate(zip(tables, hot_sizes, strict=True)):
         idx = indices[:, t, :]
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
         rows.append(lookup(_widen(torch.cat([stored[:h], stored[h:]])), idx))
-    return sum_in_order(torch.stack(rows, dim=1))
+    return sum_in_order(torch.stack(rows, dim=1)).to(tables[0].dtype)
 
 
 def dot_interaction_ref(z: torch.Tensor) -> torch.Tensor:
@@ -75,8 +82,10 @@ def upper_triangle(gram: torch.Tensor) -> torch.Tensor:
 def dot_interaction_fused_ref(bottom_out: torch.Tensor,
                               bags: torch.Tensor) -> torch.Tensor:
     """The top-MLP input of the dot interaction: bottom_out (B, D) and bags
-    (B, T-1, D) -> (B, D + T(T-1)/2) float32, ``bottom_out`` followed by the
-    strict upper triangle of the Gram of z = [bottom_out; bags]."""
+    (B, T-1, D) -> (B, D + T(T-1)/2) in their dtype, ``bottom_out``
+    followed by the strict upper triangle of the Gram of z = [bottom_out;
+    bags], each dot accumulated in float32."""
     z = torch.cat([bottom_out[:, None, :], bags], dim=1)
     return torch.cat([_widen(bottom_out),
-                      upper_triangle(dot_interaction_ref(z))], dim=1)
+                      upper_triangle(dot_interaction_ref(z))],
+                     dim=1).to(bottom_out.dtype)

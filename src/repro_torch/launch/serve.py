@@ -36,11 +36,15 @@ from repro_torch.configs import DLRMConfig
 from repro_torch.device import resolve_device
 from repro_torch.embedding.layout import RemapSpec, remap_table
 from repro_torch.models import dlrm
-from repro_torch.serving import (Batch, BatcherConfig, Deployment,
-                                 DeploymentConfig, LaneTrace,
+from repro_torch.serving import (SERVING_POLICIES, Batch, BatcherConfig,
+                                 Deployment, DeploymentConfig, LaneTrace,
                                  arch_model_config)
 
 CPU_TABLE_GIB_LIMIT = 2.0       # host-memory guard, CPU runs only
+
+# deprecated alias, as in the reference's serve: the single source is
+# flashsim.timeline.SERVING_POLICIES
+POLICY_NAMES = SERVING_POLICIES
 
 
 @dataclasses.dataclass

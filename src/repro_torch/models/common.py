@@ -35,7 +35,12 @@ def dense_init(gen: torch.Generator, d_in, d_out, dtype=torch.float32,
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["w"]
+    """``x @ w (+ b)`` in the dtype JAX promotes the two to: float32 input
+    on bf16 weights gives float32, as in the reference (torch's matmul
+    wants one dtype)."""
+    w = params["w"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dt) @ w.to(dt)
     if "b" in params:
         y = y + params["b"]
     return y
@@ -55,3 +60,19 @@ def mlp(params, x: torch.Tensor, act=torch.relu, final_act=None):
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis with the population variance, written
+    as the reference writes it (not ``F.layer_norm``, whose rounding
+    differs)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def ln_init(d: int, dtype=torch.float32,
+            device: str | torch.device = "cpu") -> dict:
+    return {"gamma": torch.ones((d,), dtype=dtype, device=device),
+            "beta": torch.zeros((d,), dtype=dtype, device=device)}

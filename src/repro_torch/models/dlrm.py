@@ -21,6 +21,21 @@ both launches go through their ``autograd.Function`` (``kernels.ops``):
 the forward is still the kernel, the backward plain PyTorch, and each stored
 table gets the dense (V, D) gradient ``jax.grad`` gives the reference.
 
+A bf16 model runs as the reference's does: bags in the tables' dtype (added
+in float32, rounded once), the interaction in the dtype JAX promotes the
+bottom MLP's output and the bags to, and the MLPs likewise
+(``models.common.dense``). With bf16 dense features everything after the
+inputs is bf16, the logits too; with float32 dense features on bf16
+weights the bottom MLP, the interaction and the logits are float32, as in
+the reference.
+
+Ids out of range are clamped on every single-device route (the kernels and
+their plain versions): an id into [0, V) before the ``rank_of``
+translation, a rank into [0, V). The reference's ``jnp.take`` fills
+instead: -1 reads row V-1 and an id at or past V gives NaN logits. The mesh
+route follows the reference's ``shard_map`` bodies
+(``embedding.sharded``).
+
 Under a mesh (``mesh=``, a ``repro_torch.distributed.mesh.Mesh``) each
 rank runs the reference's ``shard_map`` bodies on its blocks: ``params``
 hold this rank's rows of each table (and of each ``rank_of``), ``batch``
@@ -71,8 +86,11 @@ def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
 
 def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
              plain: bool = False) -> torch.Tensor:
-    """bottom_out (B,D), bags (B,T,D) -> top-MLP input. The dot interaction
-    is one fused-interaction launch: [bottom_out, upper-triangle dots]."""
+    """bottom_out (B,D), bags (B,T,D) -> top-MLP input, in the dtype the two
+    promote to (the reference's concatenate). The dot interaction is one
+    fused-interaction launch: [bottom_out, upper-triangle dots]."""
+    dt = torch.promote_types(bottom_out.dtype, bags.dtype)
+    bottom_out, bags = bottom_out.to(dt), bags.to(dt)
     if interaction == "dot":
         fused = ref.dot_interaction_fused_ref if plain else \
             ops.dot_interaction_fused
@@ -125,7 +143,8 @@ def _bag(params, indices: torch.Tensor, t: int, mesh=None, axes=("data",),
 def bags(params, indices: torch.Tensor, plain: bool = False
          ) -> torch.Tensor:
     """Every table's SLS in one grouped launch: indices (B, n_tables, L)
-    int32 logical ids -> (B, n_tables, D) f32.
+    int32 logical ids -> (B, n_tables, D) in the tables' dtype, each bag
+    added in float32; an id out of range is clamped (module docstring).
 
     With remap enabled the kernel translates ids through each ``rank_of``
     and reads the descriptors ``add_remap`` built; tables without a remap
@@ -156,7 +175,12 @@ def _constrain_hybrid(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
             hybrid: bool = False, table_2d: bool = False,
             plain: bool = False) -> torch.Tensor:
-    """batch: dense (B,n_dense) f32, indices (B,n_tables,lookups) int32.
+    """batch: dense (B,n_dense) f32 (or the params' dtype), indices
+    (B,n_tables,lookups) int32 -> logits (B,).
+
+    An id outside [0, V) is clamped into it; the reference's forward gives
+    row V-1 for -1 and NaN logits for an id at or past V (``jnp.take``'s
+    fill mode). The logits' dtype is the reference's (module docstring).
 
     Under a mesh, ``hybrid`` splits the batch across (axes x model) for the
     dense path (bottom/top MLP and interaction): the bags' all-reduce

@@ -12,6 +12,13 @@ reference's, in its order: ``adamw``'s bias corrections are f32 tensors
 (``b1 ** t`` with ``t`` an int32 0-d tensor), and ``adagrad`` steps by
 ``p - lr * g * scale``.
 
+Low-precision params keep float32 state: ``adagrad``'s accumulators are
+float32 as in the reference, and so are ``adamw``'s moments, where the
+reference keeps them in the params' dtype (``jnp.zeros_like``). Every
+update returns each param in its own dtype; the reference's ``adamw``
+returns a bf16 param as float32 (its float32 bias corrections promote the
+step), which would leave a bf16 model with float32 MLPs after one step.
+
 ``Optimizer.state_specs`` (``adafactor``'s) derives the state's
 ``PartitionSpec``s from the params' (``repro_torch.distributed``).
 """
@@ -59,11 +66,20 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
     return Optimizer(init, update)
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """Zeros shaped as ``p`` in float32, or float64 for a float64 ``p``."""
+    return torch.zeros_like(p, dtype=torch.promote_types(p.dtype,
+                                                         torch.float32))
+
+
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with float32 moments (module docstring), each param returned
+    in its dtype."""
+
     def init(params):
-        return {"m": tree.tree_map(torch.zeros_like, params),
-                "v": tree.tree_map(torch.zeros_like, params),
+        return {"m": tree.tree_map(_zeros_f32, params),
+                "v": tree.tree_map(_zeros_f32, params),
                 "t": _step_counter(params)}
 
     def update(grads, state, params):
@@ -77,7 +93,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         def step(p, m_, v_):
             upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
-            return p - lr * (upd + weight_decay * p)
+            return (p - lr * (upd + weight_decay * p)).to(p.dtype)
 
         return (tree.tree_map(step, params, m, v),
                 {"m": m, "v": v, "t": t})

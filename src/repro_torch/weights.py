@@ -1,11 +1,13 @@
-"""Transplant reference (JAX) DLRM parameters into the port.
+"""Transplant reference (JAX) parameters into the port.
 
 JAX's random draws cannot be reproduced in torch, so parity tests build the
 reference's parameters, hand them across as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and copy them here. The layout is the
-same on both sides: tables (V, D), and ``bot``/``top`` lists of
-``{"w": (d_in, d_out), "b": (d_out,)}``. Remap state (``rank_of`` arrays and
-``hot_sizes``) is carried over as well.
+same on both sides. ``from_jax_params`` takes a DLRM's (tables (V, D), and
+``bot``/``top`` lists of ``{"w": (d_in, d_out), "b": (d_out,)}``) and
+carries its remap state over (``rank_of`` arrays and ``hot_sizes``, whose
+kernel descriptors it builds); ``from_jax_tree`` copies any other model's
+tree (DIN, BERT4Rec, GraphSAGE) as it is.
 """
 
 from __future__ import annotations
@@ -28,14 +30,20 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
 def from_jax_params(tree: dict, device: str | torch.device = "cuda") -> dict:
     """Reference DLRM params as numpy arrays -> port params on ``device``."""
     dev = resolve_device(device)
-    out = {
-        "tables": [_tensor(t, dev) for t in tree["tables"]],
-        "bot": [{k: _tensor(v, dev) for k, v in layer.items()}
-                for layer in tree["bot"]],
-        "top": [{k: _tensor(v, dev) for k, v in layer.items()}
-                for layer in tree["top"]],
-    }
+    out = from_jax_tree({k: tree[k] for k in ("tables", "bot", "top")}, dev)
     if "rank_of" in tree:
         out = add_remap(out, [_tensor(r, dev) for r in tree["rank_of"]],
                         tree.get("hot_sizes"))
     return out
+
+
+def from_jax_tree(tree, device: str | torch.device = "cuda"):
+    """A reference param tree (nested dicts, lists and tuples of numpy
+    arrays) -> the same tree of tensors on ``device``, each array copied
+    in its dtype (bf16 included)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: from_jax_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_tree(v, dev) for v in tree)
+    return _tensor(tree, dev)

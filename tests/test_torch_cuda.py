@@ -23,6 +23,10 @@ pytestmark = pytest.mark.cuda
 # f32 sums of <= 80 unit-normal terms (SLS) or <= 128 products (Gram) in two
 # orders; bf16 inputs are widened exactly, so they share the f32 bound
 TOL = dict(rtol=1e-5, atol=1e-4)
+# a bf16 output is each side's f32 sum rounded once, so the two may also be
+# one bf16 ulp apart: 2^-7 relative at most (the SLS adds in one order on
+# both sides and rounds the same sum, so it is bit-equal in practice)
+BF16_OUT_TOL = dict(rtol=2**-7, atol=1e-4)
 
 
 @pytest.fixture
@@ -183,7 +187,10 @@ class TestDotInteractionOnCard:
         got = dot_interaction_fused(x, bags)
         assert dot_interaction_fused.launches == before + 1
         assert got.shape == (b, d + t * (t - 1) // 2)
-        torch.testing.assert_close(got, ops.fused_ref(x, bags), **TOL)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, ops.fused_ref(x, bags),
+                                   **(TOL if dtype == torch.float32
+                                      else BF16_OUT_TOL))
 
     def test_fused_unaligned_rows(self, gen):
         # a row stride of 65 floats: staged by plain loads, not cp.async
@@ -419,3 +426,152 @@ def test_restore_onto_the_card_mesh(gen, nccl_mesh, tmp_path):
     got = checkpoint.restore(str(tmp_path), 1, params, sh)
     for a, b in zip(tree.leaves(got), tree.leaves(params), strict=True):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- bf16 DLRM, the out-of-range contract, the other recsys models -----------
+
+def _tiny_cfg():
+    return DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
+                      n_rows=(500,) * 3, lookups=4, bot_mlp=(32, 16),
+                      top_mlp=(32,))
+
+
+def _tiny_bf16(gen):
+    cfg = _tiny_cfg()
+    params = dlrm.init(0, cfg, dtype=torch.bfloat16, device="cuda")
+    perm = [torch.randperm(500, generator=gen, device="cuda")
+            for _ in range(cfg.n_tables)]
+    params = dlrm.add_remap(params, [p.argsort().to(torch.int32)
+                                     for p in perm], [5, 50, 499])
+    batch = {"dense": torch.randn(16, 13, generator=gen, device="cuda"
+                                  ).to(torch.bfloat16),
+             "indices": torch.randint(0, 500, (16, 3, 4), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+             "labels": (torch.rand(16, generator=gen, device="cuda")
+                        > 0.5).float()}
+    return cfg, params, batch
+
+
+class TestBF16OnCard:
+    # the reference's bf16 tolerance: the two routes round the bags'
+    # interaction dots to bf16 from f32 sums taken in other orders
+    BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+    def test_sls_entries_store_bf16_bags(self, gen):
+        hot, cold, idx = _sls_inputs(gen, 64, 512, 64, 32, 80, torch.bfloat16)
+        got = recflash_sls(hot, cold, idx)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, ops.sls_ref(hot, cold, idx),
+                                   rtol=0, atol=0)
+        tables, rank_of, idx = _group(gen, (64, 100, 130), 64, (1, 17, 129),
+                                      16, 80, torch.bfloat16)
+        got = recflash_sls_grouped(tables, (1, 17, 129), idx, rank_of)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got, ops.sls_grouped_ref(tables, (1, 17, 129), idx, rank_of),
+            rtol=0, atol=0)
+
+    def test_forward_and_retrieval_kernels_vs_plain(self, gen):
+        cfg, params, batch = _tiny_bf16(gen)
+        got = dlrm.forward(params, batch, cfg)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got, dlrm.forward(params, batch, cfg, plain=True),
+            **self.BF16_TOL)
+        rb = {"dense": batch["dense"][:1], "indices": batch["indices"][:1],
+              "candidates": torch.randint(0, 500, (777,), generator=gen,
+                                          device="cuda", dtype=torch.int32)}
+        with torch.inference_mode():
+            got = dlrm.retrieval_score(params, rb, cfg)
+        assert got.dtype == torch.bfloat16 and got.shape == (777,)
+        torch.testing.assert_close(
+            got, dlrm.retrieval_score(params, rb, cfg, plain=True),
+            **self.BF16_TOL)
+
+    def test_loss_gradients_vs_plain(self, gen):
+        cfg, params, batch = _tiny_bf16(gen)
+        from repro_torch import tree
+        train = {k: params[k] for k in ("tables", "bot", "top")}
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(train)]
+        p = dlrm.add_remap(tree.unflatten(train, leaves), params["rank_of"],
+                           params["hot_sizes"])
+        loss = dlrm.loss(p, batch, cfg)
+        plain = dlrm.loss(p, batch, cfg, plain=True)
+        torch.testing.assert_close(loss, plain, **self.BF16_TOL)
+        for g, w in zip(torch.autograd.grad(loss, leaves),
+                        torch.autograd.grad(plain, leaves), strict=True):
+            assert g.dtype == torch.bfloat16
+            assert float((g.float() - w.float()).norm()) <= \
+                2e-2 * float(w.float().norm()) + 1e-6
+
+
+class TestClampOnCard:
+    @pytest.mark.parametrize("bad", [-1, 500, 508])
+    def test_kernel_route_equals_the_cpu_route(self, gen, bad):
+        """Ids -1, V and V+8 give on the card the bags and logits the CPU
+        route gives, which are those of the ids clamped into [0, V)."""
+        cfg, params, batch = _tiny_bf16(gen)
+        idx = batch["indices"].clone()
+        idx[2, 1, 3] = idx[0, 0, 0] = bad
+        got = dlrm.bags(params, idx)
+        cpu = {**params, "tables": [t.cpu() for t in params["tables"]],
+               "rank_of": [r.cpu() for r in params["rank_of"]]}
+        want = dlrm.bags(dlrm.add_remap(cpu, cpu["rank_of"],
+                                        params["hot_sizes"]), idx.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        torch.testing.assert_close(
+            got, dlrm.bags(params, idx.clamp(0, 499)), rtol=0, atol=0)
+        hot, cold = params["tables"][0][:5], params["tables"][0][5:]
+        r = idx[:, 0, :].contiguous()
+        torch.testing.assert_close(recflash_sls(hot, cold, r).cpu(),
+                                   ops.sls_ref(hot.cpu(), cold.cpu(),
+                                               r.cpu()), rtol=0, atol=0)
+        logits = dlrm.forward(params, {**batch, "indices": idx}, cfg)
+        assert torch.isfinite(logits.float()).all()
+        torch.testing.assert_close(
+            logits, dlrm.forward(params, {**batch,
+                                          "indices": idx.clamp(0, 499)}, cfg),
+            rtol=0, atol=0)
+
+
+def _recsys_tol():
+    # the same float32 function on two devices: cuBLAS and the CPU's BLAS
+    # sum each dot product in other orders (TF32 off)
+    return dict(rtol=1e-4, atol=1e-5)
+
+
+def test_din_forward_on_card_vs_cpu(gen):
+    from repro_torch import tree
+    from repro_torch.models import din
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = din.DINConfig(n_items=1000, seq_len=20)
+    params = din.init(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    mask = torch.ones(64, 20, dtype=torch.bool)
+    mask[:, 15:] = False
+    batch = {"hist": torch.randint(0, 1000, (64, 20), generator=g),
+             "hist_mask": mask,
+             "target": torch.randint(0, 1000, (64,), generator=g),
+             "profile": torch.randn(64, 8, generator=g)}
+    want = din.forward(params, batch, cfg)
+    on_card = tree.unflatten(params, [x.cuda() for x in tree.leaves(params)])
+    got = din.forward(on_card, {k: v.cuda() for k, v in batch.items()}, cfg)
+    torch.testing.assert_close(got.cpu(), want, **_recsys_tol())
+
+
+def test_bert4rec_forward_on_card_vs_cpu(gen):
+    from repro_torch import tree
+    from repro_torch.models import bert4rec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = bert4rec.Bert4RecConfig(n_items=500, seq_len=24)
+    params = bert4rec.init(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    pad = torch.ones(8, 24, dtype=torch.bool)
+    pad[:, :4] = False
+    batch = {"items": torch.randint(1, 500, (8, 24), generator=g),
+             "pad_mask": pad}
+    want = bert4rec.score(params, batch, cfg)
+    on_card = tree.unflatten(params, [x.cuda() for x in tree.leaves(params)])
+    got = bert4rec.score(on_card, {k: v.cuda() for k, v in batch.items()},
+                         cfg)
+    torch.testing.assert_close(got.cpu(), want, **_recsys_tol())

@@ -33,3 +33,22 @@ def test_quickstart_torch_matches_the_reference():
     assert share.search(got_sls).groups() == share.search(ref_sls).groups()
     assert "plain PyTorch (CPU)" in got_sls
     assert got_sls.endswith("max |err| vs oracle = 0.00e+00")
+
+
+def test_online_adaptive_remap_torch_matches_the_reference():
+    """The port's online-remap example (the Criteo day streams, the
+    threshold trigger and Algorithm 1 on the port's numpy copies) prints
+    the reference's lines byte for byte."""
+    ref = _run("examples/online_adaptive_remap.py")
+    got = _run("examples/online_adaptive_remap_torch.py")
+    assert got == ref
+    assert ref.count("adaptive remap:") >= 1 and "cumulative:" in ref
+
+
+def test_serve_policy_names_alias():
+    from repro.launch import serve as jax_serve
+    from repro_torch.flashsim.timeline import SERVING_POLICIES
+    from repro_torch.launch import serve
+
+    assert serve.POLICY_NAMES is SERVING_POLICIES
+    assert serve.POLICY_NAMES == jax_serve.POLICY_NAMES

@@ -211,9 +211,10 @@ class TestCheckpoint:
         assert out[1]["dense"]["t"].dtype == torch.int32
 
     def test_bf16_and_shardings_wait(self, tmp_path):
-        """bf16 leaves still wait for a bf16 path (A13); shardings no
-        longer wait (A11): a leaf comes back as this rank's block, and a
-        shardings tree without one sharding per leaf is refused."""
+        """bf16 leaves are refused (the reference's checkpoints cannot
+        round-trip one either); with shardings a leaf comes back as this
+        rank's block, and a shardings tree without one sharding per leaf
+        is refused."""
         with pytest.raises(TypeError):
             ckpt.save(str(tmp_path), 1, {"x": torch.ones(2,
                                                          dtype=torch.bfloat16)})
