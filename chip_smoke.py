@@ -65,7 +65,20 @@ Phases, each of which fails the run when it fails:
    4096, retrieval of 1 x 1M in chunks; BERT4Rec score at 512, cloze loss
    and gradients at 1024, retrieval of 1 x 1M ids; GraphSAGE sampled
    Reddit-scale loss and gradients, Cora full-graph loss and gradients,
-   128 batched molecule graphs); they launch none of the port's kernels.
+   128 batched molecule graphs); they launch none of the port's kernels;
+11. lm: the LM family in bf16, as the reference's serve cells run it:
+   qwen3-1.7b at full width and depth (prefill at (8, 4096), then 32
+   teacher-forced decode steps over a cache of 4,128 slots), qwen2-0.5b,
+   nemotron-4-15b, qwen3-moe-30b-a3b and deepseek-v3-671b at full width
+   with their depth cut; times, tokens/s and peak memory beside their
+   bounds, the logits finite and their bf16 drift from the full forward;
+   the reference's decode-vs-full property held per arch in float32 at
+   full width (MoE archs with capacity = tokens); deepseek's train_loss
+   with MTP, forward and backward; the narrow variants card against CPU;
+   ``flash_attention`` beside ``F.scaled_dot_product_attention`` (a
+   yardstick the path never calls); lm-100m training in process and
+   through ``python -m repro_torch.launch.train --model lm``, run and
+   resumed; no launch of either kernel.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -222,8 +235,8 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor,
           f"{max_rel:.3e} (rtol {tol['rtol']}, atol {tol['atol']}) "
           f"{'ok' if ok else 'MISS'}")
     if not ok or not torch.isfinite(got).all():
-        raise AssertionError(f"{label}: kernel disagrees with its plain "
-                             "version")
+        raise AssertionError(f"{label}: the two disagree beyond the "
+                             "tolerance")
     return max_abs
 
 
@@ -1230,7 +1243,10 @@ def _grads(fn, params) -> tuple[torch.Tensor, list[torch.Tensor]]:
     of ``params``."""
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
     loss = fn(tree.unflatten(params, leaves))
-    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    # a leaf the loss does not reach (a router bias) gets zeros, as
+    # jax.grad gives it
+    return loss.detach(), list(torch.autograd.grad(loss, leaves,
+                                                   materialize_grads=True))
 
 
 def _to(tree_, device):
@@ -1652,6 +1668,625 @@ def phase_recsys(card: str) -> dict:
     return dict(launches=launches, results=out)
 
 
+# ------------------------------------------------------------------- LM --
+# the LM phase runs in bf16, as the reference's serve cells do
+# (src/repro/configs/lm_common.py): prefill at train_4k's length, then
+# LM_DECODE_STEPS teacher-forced decode steps into a cache of LM_SEQ +
+# LM_DECODE_STEPS slots, held against one full forward over LM_FULL_SEQ
+# tokens (chunkable by 512 and 1024, so it runs the flash path too)
+LM_SEQ = 4096
+LM_DECODE_STEPS = 32
+LM_FULL_SEQ = 5120
+# (arch, the config's cut of depth, batch of the timed bf16 prefill and
+# decode, the float32 decode-vs-full check as (batch, prefill length,
+# forward length)): qwen3-1.7b at full width and depth, the others at full
+# width and the depth one card holds
+LM_RUNS = (
+    ("qwen3-1.7b", {}, 8, (2, LM_SEQ, LM_FULL_SEQ)),
+    ("qwen2-0.5b", dict(n_layers=2), 8, (2, LM_SEQ, LM_FULL_SEQ)),
+    ("nemotron-4-15b", dict(n_layers=2), 8, (2, LM_SEQ, LM_FULL_SEQ)),
+    ("qwen3-moe-30b-a3b", dict(n_layers=2), 8, (1, LM_SEQ, LM_FULL_SEQ)),
+    ("deepseek-v3-671b", dict(n_layers=2, n_dense_layers=1), 2,
+     (1, 480, 512)),
+)
+# the decode-vs-full property (tests/test_models.py) runs in float32, at
+# the reference's own tolerance: each logit within 2e-3. In bf16 the two
+# paths round differently at every op (1-2% relative L2 over 2-28 layers
+# on an H100), and a MoE token whose top-k scores nearly tie can pick
+# another expert on either path, so the bf16 drift is measured, not held
+LM_CHECK_TOL = dict(rtol=0, atol=2e-3)
+# flash_attention against SDPA in bf16 (one layer's attention, forward and
+# gradients): ||got - want|| / ||want||
+LM_ATTN_REL_L2 = 2e-2
+# deepseek's train_loss (MTP head on), forward and backward, at full width
+LM_TRAIN_SHAPE = (1, 512)
+# the narrow variants held card against CPU (f32, TF32 off): the
+# reference's reduced archs of tests/test_models.py, wider and longer so
+# that attention runs several chunks
+LM_NARROW = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                 vocab=512, rope_theta=10_000.0, remat=False, q_chunk=64,
+                 kv_chunk=64)
+LM_NARROW_SEQ = 128
+# the lm-100m training of launch/train.py --model lm: at the CLI's default
+# batch (seq 256 is its default too) its peak is 81.76 GB of an H100's
+# 85.02 where it fits, and in most runs the allocator's fragmentation
+# (15.6 GiB reserved but free) raises OOM; so the phase measures the
+# defaults in process and trains, and runs the CLI, at LM_TRAIN_BATCH
+LM_CLI_BATCH = 256
+LM_TRAIN_BATCH = 64
+# the attention yardstick: qwen3-1.7b's prefill shape, GQA 16/8, d 128
+ATTN_SHAPE = dict(b=8, t=LM_SEQ, h=16, kv=8, d=128)
+
+
+def lm_narrow_configs() -> dict:
+    """The five archs' reduced variants (tests/test_models.py's
+    LM_VARIANTS) at LM_NARROW's width."""
+    from repro_torch.models.lm import LMConfig
+    from repro_torch.models.mla import MLAConfig
+    from repro_torch.models.moe import MoEConfig
+
+    def v(**kw):
+        return LMConfig(name="narrow", **{**LM_NARROW, **kw})
+
+    d = LM_NARROW["d_model"]
+    return {
+        "qwen3-1.7b": v(qk_norm=True, tie_embeddings=True),
+        "qwen2-0.5b": v(n_kv_heads=1, qkv_bias=True, tie_embeddings=True),
+        "nemotron-4-15b": v(act="squared_relu"),
+        "qwen3-moe-30b-a3b": v(qk_norm=True, moe=MoEConfig(
+            d_model=d, d_expert=64, n_experts=8, top_k=2,
+            capacity_factor=2.0)),
+        "deepseek-v3-671b": v(
+            n_heads=4, n_kv_heads=4, n_dense_layers=1, mtp=True,
+            mla=MLAConfig(d_model=d, n_heads=4, q_lora_rank=64,
+                          kv_lora_rank=32, nope_head_dim=32,
+                          rope_head_dim=16, v_head_dim=32),
+            moe=MoEConfig(d_model=d, d_expert=64, n_experts=4, top_k=2,
+                          n_shared=1, router_bias=True, capacity_factor=2.0)),
+    }
+
+
+def lm_layer_counts(cfg) -> tuple[int, int]:
+    n_dense = cfg.n_dense_layers if cfg.moe is not None else cfg.n_layers
+    return n_dense, cfg.n_layers - n_dense
+
+
+def lm_ffn_params(cfg, moe_layer: bool, experts: int) -> int:
+    """Weights one token's FFN reads: dense, or ``experts`` routed experts
+    plus the shared ones and the router (0 for a MoE layer of a dense
+    config: it has none)."""
+    if moe_layer and cfg.moe is None:
+        return 0
+    if not moe_layer:
+        return (3 if cfg.act == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+    m = cfg.moe
+    return (experts + m.n_shared) * 3 * cfg.d_model * m.d_expert \
+        + cfg.d_model * m.n_experts
+
+
+def lm_prefill_flops(cfg, b: int, t: int) -> float:
+    """The operations prefill of (b, t) tokens needs: every weight matmul
+    of the layers at top_k experts a token, causal attention over the
+    t(t+1)/2 (query, key) pairs each head sees, and the last position's
+    logits. The GShard blocks' empty capacity slots are not counted."""
+    n_dense, n_moe = lm_layer_counts(cfg)
+    k = cfg.moe.top_k if cfg.moe else 0
+    weights = (n_dense * lm_ffn_params(cfg, False, 0)
+               + n_moe * lm_ffn_params(cfg, True, k)
+               + cfg.n_layers * configs.lm_attn_params(cfg))
+    if cfg.mla is not None:
+        d_qk, d_v = cfg.mla.qk_head_dim, cfg.mla.v_head_dim
+    else:
+        d_qk = d_v = cfg.head_dim
+    attn = cfg.n_layers * 2 * b * cfg.n_heads * (t * (t + 1) / 2) \
+        * (d_qk + d_v)
+    return 2 * b * t * weights + attn + 2 * b * cfg.d_model * cfg.vocab
+
+
+def lm_decode_bytes(cfg, b: int, slots: float) -> float:
+    """The bytes one decode step must move at ``slots`` valid cache slots:
+    every weight it reads once (bf16; the float32 routers at 4 B), the
+    valid cache, the token rows of an untied embedding. A MoE layer reads
+    at most min(E, b * top_k) routed experts; the bound counts that many
+    (this run's routing may reach fewer)."""
+    n_dense, n_moe = lm_layer_counts(cfg)
+    experts = min(cfg.moe.n_experts, b * cfg.moe.top_k) if cfg.moe else 0
+    weights = 2 * (n_dense * lm_ffn_params(cfg, False, 0)
+                   + n_moe * lm_ffn_params(cfg, True, experts)
+                   + cfg.n_layers * configs.lm_attn_params(cfg)
+                   + cfg.vocab * cfg.d_model)
+    if cfg.moe is not None:          # the router is float32
+        weights += n_moe * 2 * cfg.d_model * cfg.moe.n_experts
+    if not cfg.tie_embeddings:
+        weights += 2 * b * cfg.d_model
+    per_slot = (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+                if cfg.mla is not None
+                else 2 * cfg.n_kv_heads * cfg.head_dim)
+    return weights + cfg.n_layers * b * slots * per_slot * 2
+
+
+def _lm_tokens(cfg, b: int, t: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(1, cfg.vocab, (b, t)).astype(
+        np.int32)).cuda()
+
+
+def _lm_decode(params, cache, toks, t0: int, cfg) -> torch.Tensor:
+    """LM_DECODE_STEPS steps from ``t0`` cached tokens, each fed the next
+    token of ``toks`` (teacher forcing); their logits (B, steps, V)."""
+    from repro_torch.models import lm
+    out = []
+    for i in range(LM_DECODE_STEPS):
+        logits, cache = lm.decode_step(params, cache, toks[:, t0 + i],
+                                       t0 + i, cfg)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def _grown(cache: dict, slots: int) -> dict:
+    """``cache`` (exactly T slots) padded with zero slots to ``slots``, in
+    its dtype and on its device."""
+    return {k: F.pad(v, [0, 0] * (v.ndim - 3) + [0, slots - v.shape[2]])
+            for k, v in cache.items()}
+
+
+def full_logits(params, cfg, toks, t0: int) -> torch.Tensor:
+    """One forward over all of ``toks``: the logits at positions ``t0 - 1``
+    .. ``t0 + LM_DECODE_STEPS - 1``, where prefill of ``t0`` tokens and the
+    teacher-forced decode steps predict."""
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        hidden = lm.backbone(params, toks, cfg)
+        return lm.logits_fn(params, hidden[:, t0 - 1:t0 + LM_DECODE_STEPS],
+                            cfg)
+
+
+def prefill_and_decode(params, cfg, toks, t0: int):
+    """Prefill ``t0`` tokens of ``toks``, grow the cache to ``t0`` +
+    LM_DECODE_STEPS slots and decode that many teacher-forced steps:
+    (prefill logits, decode logits, the cache)."""
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        logits_p, cache = lm.prefill(params, toks[:, :t0], cfg)
+        cache = _grown(cache, t0 + LM_DECODE_STEPS)
+        return logits_p, _lm_decode(params, cache, toks, t0, cfg), cache
+
+
+def lm_serve(name: str, cut: dict, b: int, card: str) -> dict:
+    """One arch in bf16 on the card: prefill of (b, LM_SEQ), then
+    LM_DECODE_STEPS teacher-forced decode steps over a cache of LM_SEQ +
+    LM_DECODE_STEPS slots; times, tokens/s, peak memory and their bounds;
+    the logits finite, and their drift from the full forward."""
+    import dataclasses
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.LM_ARCHS[name], **cut)
+    depth = ("full depth" if not cut else
+             f"depth cut to {cfg.n_layers} of "
+             f"{configs.LM_ARCHS[name].n_layers} layers"
+             + (f" ({lm_layer_counts(cfg)[0]} dense + "
+                f"{lm_layer_counts(cfg)[1]} MoE)" if cfg.moe else ""))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init(0, cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    p_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(params))
+    print(f"[lm] {name} on {card}: full width, {depth}: "
+          f"{n_params / 1e9:.3f}B params, "
+          f"{p_bytes / 1e9:.2f} GB in bf16 (float32 routers), drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    slots = LM_SEQ + LM_DECODE_STEPS
+    toks = _lm_tokens(cfg, b, LM_FULL_SEQ, 1)
+    with torch.inference_mode():
+        prefill_ms = call_ms(lambda: lm.prefill(params, toks[:, :LM_SEQ],
+                                                cfg), reps=2)
+    logits_p, logits_d, cache = prefill_and_decode(params, cfg, toks, LM_SEQ)
+    cache_gb = sum(c.numel() * c.element_size()
+                   for c in cache.values()) / 1e9
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        # the same steps again, timed: each writes the slot it wrote before
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _lm_decode(params, cache, toks, LM_SEQ, cfg)
+        end.record()
+        torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / LM_DECODE_STEPS
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del cache
+    flops = lm_prefill_flops(cfg, b, LM_SEQ)
+    p_bound, p_by = bound_ms(0.0, flops, BF16_FLOPS)
+    d_bytes = lm_decode_bytes(cfg, b, LM_SEQ + (LM_DECODE_STEPS + 1) / 2)
+    d_bound, d_by = bound_ms(d_bytes, 0.0)
+    out = dict(params_gb=p_bytes / 1e9, prefill_ms=prefill_ms,
+               prefill_bound_ms=p_bound, prefill_tok_s=b * LM_SEQ
+               / prefill_ms * 1e3, decode_ms=decode_ms,
+               decode_bound_ms=d_bound, decode_tok_s=b / decode_ms * 1e3,
+               cache_gb=cache_gb, peak_gb=peak_gb, batch=b,
+               least_gb=p_bytes / 1e9 + cache_gb)
+    print(f"[lm] {name} on {card}: prefill (B, T) = ({b}, {LM_SEQ}) "
+          f"{prefill_ms:.1f} ms ({out['prefill_tok_s']:.0f} tokens/s; bound "
+          f"{p_bound:.1f} ms by {p_by}: {flops:.3e} FLOP at 989 TFLOP/s); "
+          f"decode {decode_ms:.2f} ms/step over a cache of {slots} slots, "
+          f"{cache_gb:.2f} GB ({out['decode_tok_s']:.0f} tokens/s; bound "
+          f"{d_bound:.2f} ms by {d_by}: {d_bytes / 1e9:.2f} GB at 3.35 "
+          f"TB/s); peak device memory {peak_gb:.2f} GB above what was "
+          f"there (least: the params and the decode cache, "
+          f"{p_bytes / 1e9 + cache_gb:.2f} GB)")
+    if not (torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all()):
+        raise AssertionError(f"{name}: non-finite bf16 logits")
+    full = full_logits(params, cfg, toks, LM_SEQ)
+    out["bf16_drift"] = (_rel(logits_p.float(), full[:, 0].float()),
+                         _rel(logits_d.float(), full[:, 1:].float()))
+    print(f"[lm] {name} on {card}: bf16 drift, measured (not held): "
+          f"prefill logits vs "
+          f"the full forward over {LM_FULL_SEQ} tokens "
+          f"{out['bf16_drift'][0]:.3e}, decode {out['bf16_drift'][1]:.3e} "
+          f"relative L2"
+          + (" (at the config's capacity, which clips other assignments "
+             "at each token count)" if cfg.moe else ""))
+    del full
+    del logits_p, logits_d
+    out["params"] = params
+    out["cfg"] = cfg
+    return out
+
+
+def lm_check(name: str, cfg, check: tuple, card: str) -> float:
+    """The reference's decode-vs-full property (tests/test_models.py) at
+    full width in float32 (fresh params, TF32 off): prefill, then
+    LM_DECODE_STEPS teacher-forced decode steps, each logit within
+    LM_CHECK_TOL of one forward over the whole sequence. MoE archs run it
+    with capacity = tokens, as the reference's bisect test does."""
+    import dataclasses
+    from repro_torch.models import lm
+    b, t0, t_full = check
+    cfg = dataclasses.replace(cfg, mtp=False)      # decode has no MTP head
+    if cfg.moe is not None:
+        m = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        print(f"[lm] {name}: the decode-vs-full check runs with "
+              f"capacity_factor {cfg.moe.capacity_factor} (capacity = "
+              f"tokens: nothing clipped); a finite capacity depends on the "
+              f"tokens in the call (moe._cap_per_expert), so prefill, decode "
+              f"and the full forward would clip different assignments by "
+              f"design")
+    params = lm.init(0, cfg, torch.float32, device="cuda")
+    toks = _lm_tokens(cfg, b, t_full, 2)
+    logits_p, logits_d, cache = prefill_and_decode(params, cfg, toks, t0)
+    del cache
+    full = full_logits(params, cfg, toks, t0)
+    label = (f"{name} float32 on {card}, (B, T) = ({b}, {t0}) + "
+             f"{LM_DECODE_STEPS} "
+             f"steps vs a forward over {t_full} tokens")
+    return max(compare(f"{label}: prefill logits", logits_p, full[:, 0],
+                       LM_CHECK_TOL),
+               compare(f"{label}: decode logits", logits_d, full[:, 1:],
+                       LM_CHECK_TOL))
+
+
+def lm_train_deepseek(params, cfg, card: str) -> dict:
+    """deepseek's train_loss with its MTP head at full width (the cut
+    depth): loss and every gradient, at LM_TRAIN_SHAPE."""
+    from repro_torch.models import lm
+    b, t = LM_TRAIN_SHAPE
+    toks = _lm_tokens(cfg, b, t + 1, 3)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    p_gb = sum(x.numel() * x.element_size()
+               for x in tree.leaves(params)) / 1e9
+    print(f"[lm] deepseek train_loss reckoned peak: {p_gb:.1f} GB of "
+          f"params + {p_gb:.1f} GB of bf16 gradients + activations at "
+          f"(B, T) = ({b}, {t})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = _grads(lambda q: lm.train_loss(q, batch, cfg), params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    n_zero = sum(int(not g.any()) for g in grads)
+    del grads
+    ms = call_ms(lambda: _grads(lambda q: lm.train_loss(q, batch, cfg),
+                                params), reps=2)
+    print(f"[lm] deepseek train_loss (MTP on) forward + backward at (B, T) "
+          f"= ({b}, {t}) on {card}: loss {float(loss):.4f}, {ms:.1f} ms per "
+          f"call, peak device memory {peak:.2f} GB; {n_zero} gradient "
+          f"tensors all zero (the router bias only picks experts)")
+    if not finite:
+        raise AssertionError("deepseek train_loss: non-finite loss or "
+                             "gradient")
+    return dict(ms=ms, peak_gb=peak, loss=float(loss))
+
+
+def lm_card_vs_cpu(card: str) -> float:
+    """The narrow variants, f32 params drawn on the CPU and copied to the
+    card: prefill logits, one decode step's logits, train_loss and every
+    gradient, card against CPU (TF32 off)."""
+    from repro_torch.models import lm
+    worst = 0.0
+    cuda = torch.device("cuda")
+    for name, cfg in lm_narrow_configs().items():
+        params = lm.init(0, cfg, device="cpu")
+        pc = _to(params, cuda)
+        rng = np.random.default_rng(4)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, LM_NARROW_SEQ + 1)).astype(np.int32))
+        tc = toks.to(cuda)
+        t = LM_NARROW_SEQ                   # chunkable: the flash path
+        with torch.inference_mode():
+            got, cache = lm.prefill(pc, tc[:, :t], cfg)
+            want, ccache = lm.prefill(params, toks[:, :t], cfg)
+            worst = max(worst, compare(f"lm {name} narrow prefill logits, "
+                                       f"{card} vs CPU", got, want.to(cuda),
+                                       RECSYS_TOL))
+            got, _ = lm.decode_step(pc, _grown(cache, t + 1), tc[:, t], t, cfg)
+            want, _ = lm.decode_step(params, _grown(ccache, t + 1),
+                                     toks[:, t], t, cfg)
+            worst = max(worst, compare(f"lm {name} narrow decode logits, "
+                                       f"{card} vs CPU", got, want.to(cuda),
+                                       RECSYS_TOL))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        bc = {k: v.to(cuda) for k, v in batch.items()}
+        loss, g_got = _grads(lambda q: lm.train_loss(q, bc, cfg), pc)
+        wloss, g_want = _grads(lambda q: lm.train_loss(q, batch, cfg), params)
+        compare(f"lm {name} narrow train_loss, {card} vs CPU", loss,
+                wloss.to(cuda), RECSYS_TOL)
+        check_tensors(f"lm {name} narrow gradients, {card} vs CPU", g_got,
+                      [g.to(cuda) for g in g_want], RECSYS_GRAD_REL_L2)
+    return worst
+
+
+def lm_attention_yardstick(card: str) -> dict:
+    """``flash_attention`` forward and forward + backward at qwen3-1.7b's
+    prefill shape in bf16, beside ``F.scaled_dot_product_attention``
+    (``enable_gqa``) on the same tensors; the path calls no SDPA."""
+    from repro_torch.models.attention import flash_attention
+    s = ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+
+    q = rnd(s["b"], s["t"], s["h"], s["d"])
+    k, v = rnd(s["b"], s["t"], s["kv"], s["d"]), rnd(s["b"], s["t"],
+                                                     s["kv"], s["d"])
+    dout = torch.randn(q.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    def fwd_bwd(fn):
+        return torch.autograd.grad(fn(q, k, v), (q, k, v), dout)
+
+    with torch.no_grad():
+        ours = flash_attention(q, k, v)
+        lib = sdpa(q, k, v)
+    g_ours, g_lib = fwd_bwd(flash_attention), fwd_bwd(sdpa)
+    err = check_tensors("flash_attention forward, dq, dk, dv vs SDPA's, bf16",
+                        [ours, *g_ours], [lib, *g_lib], LM_ATTN_REL_L2)
+    del ours, lib, g_ours, g_lib
+    pairs = s["b"] * s["h"] * s["t"] * (s["t"] + 1) / 2
+    fwd_flops = 4 * pairs * s["d"]
+    out = {}
+    with torch.no_grad():
+        out["flash fwd"] = call_ms(lambda: flash_attention(q, k, v))
+        out["sdpa fwd"] = call_ms(lambda: sdpa(q, k, v))
+    out["flash fwd+bwd"] = call_ms(lambda: fwd_bwd(flash_attention), reps=3)
+    out["sdpa fwd+bwd"] = call_ms(lambda: fwd_bwd(sdpa), reps=3)
+    fb, _ = bound_ms(0.0, fwd_flops, BF16_FLOPS)
+    fbb, _ = bound_ms(0.0, 3.5 * fwd_flops, BF16_FLOPS)
+    print(f"[lm] attention (B, T, H, KV, d) = ({s['b']}, {s['t']}, "
+          f"{s['h']}, {s['kv']}, {s['d']}), causal, bf16, on {card}: "
+          f"flash_attention forward {out['flash fwd']:.3f} ms, forward + "
+          f"backward {out['flash fwd+bwd']:.3f} ms; "
+          f"F.scaled_dot_product_attention {out['sdpa fwd']:.3f} / "
+          f"{out['sdpa fwd+bwd']:.3f} ms; bound {fb:.3f} / {fbb:.3f} ms "
+          f"({fwd_flops:.3e} / {3.5 * fwd_flops:.3e} FLOP at 989 TFLOP/s)")
+    return dict(ms=out, bound_ms=fb, bound_fwd_bwd_ms=fbb, err=err)
+
+
+def lm_layers(card: str) -> dict:
+    """The LM path's other layers alone, each beside its bound: the MoE
+    FFN at qwen3-moe's width over a prefill's tokens (and its blocked
+    GEMMs alone, the rest being dispatch and combine), ``chunked_ce``
+    forward and backward at lm-100m's (LM_TRAIN_BATCH, 256), and decode
+    attention over qwen3-1.7b's cache of one layer."""
+    import dataclasses
+    from repro_torch.models import lm, moe
+    from repro_torch.models.attention import decode_attention
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    # MoE at qwen3-moe-30b-a3b's width, (8, 4096) tokens, capacity 1.5
+    m = configs.QWEN3_MOE_30B_A3B_MOE
+    p = moe.init_moe(gen, m, torch.bfloat16)
+    n = 8 * LM_SEQ
+    x = torch.randn((n, m.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    cap = moe._cap_per_expert(m, n)
+    xb = torch.randn((m.n_experts, cap, m.d_model), generator=gen,
+                     device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        out["moe_ffn"] = call_ms(lambda: moe.moe_ffn(p, x, m))
+        out["moe blocked GEMMs"] = call_ms(lambda: moe._blocked_ffn(
+            xb, p["w_gate"], p["w_up"], p["w_down"], m.act))
+    flops = 2 * n * m.top_k * 3 * m.d_model * m.d_expert
+    w_bytes = 3 * m.n_experts * m.d_model * m.d_expert * 2
+    moe_bound, moe_by = bound_ms(w_bytes + 2 * n * m.d_model * 2, flops,
+                                 BF16_FLOPS)
+    print(f"[lm] moe_ffn at qwen3-moe width, {n} tokens, top-{m.top_k} of "
+          f"{m.n_experts}, capacity {cap}, bf16, on {card}: "
+          f"{out['moe_ffn']:.3f} ms, of which the blocked GEMMs alone "
+          f"{out['moe blocked GEMMs']:.3f} ms (the rest: routing, sort, "
+          f"dispatch and combine); bound {moe_bound:.3f} ms by {moe_by}")
+    del p, x, xb
+    # chunked_ce, forward and backward, lm-100m (f32, padded to 512)
+    cfg = configs.LM_100M
+    params = lm.init(0, cfg, device="cuda")
+    b, t = LM_TRAIN_BATCH, 256
+    hidden = torch.randn((b, t, cfg.d_model), generator=gen, device="cuda",
+                         requires_grad=True)
+    tgt = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+
+    def ce():
+        loss = lm.chunked_ce(params, hidden, tgt, cfg)
+        return torch.autograd.grad(loss, (hidden, params["embed"]))
+
+    params["embed"].requires_grad_()
+    out["chunked_ce"] = call_ms(ce, reps=3)
+    ce_flops = 3 * 2 * b * t * cfg.d_model * cfg.vocab
+    ce_bound, ce_by = bound_ms(0.0, ce_flops)
+    print(f"[lm] chunked_ce forward + backward at lm-100m, (B, T) = ({b}, "
+          f"{t}) padded to 512, vocab {cfg.vocab}, f32, on {card}: "
+          f"{out['chunked_ce']:.3f} ms; bound {ce_bound:.3f} ms by {ce_by} "
+          f"({ce_flops:.3e} FLOP for the {t} real positions at 67 TFLOP/s)")
+    del params, hidden
+    # decode attention over one layer of qwen3-1.7b's cache
+    c = configs.QWEN3_1_7B
+    slots = LM_SEQ + LM_DECODE_STEPS
+    q = torch.randn((8, c.n_heads, c.head_dim), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kc = torch.randn((8, slots, c.n_kv_heads, c.head_dim), generator=gen,
+                     device="cuda", dtype=torch.bfloat16)
+    vc = torch.randn_like(kc)
+    with torch.inference_mode():
+        out["decode_attention"] = call_ms(
+            lambda: decode_attention(q, kc, vc, slots), reps=20)
+    da_bound, da_by = bound_ms(2 * kc.numel() * 2, 0.0)
+    print(f"[lm] decode_attention over one layer's cache of qwen3-1.7b "
+          f"(8 x {slots} slots, {c.n_kv_heads} KV heads, d {c.head_dim}), "
+          f"bf16, on {card}: {out['decode_attention']:.3f} ms; bound "
+          f"{da_bound:.3f} ms by {da_by}")
+    return dict(ms=out, bound_ms=dict(moe_ffn=moe_bound, chunked_ce=ce_bound,
+                                      decode_attention=da_bound))
+
+
+def _lm_100m_steps(b: int, card: str) -> dict:
+    """launch/train.py's LM pipeline in process at (b, 256): one cold and
+    three warm steps, the warm median, the loss, the peak memory."""
+    import argparse
+    args = argparse.Namespace(seed=0, lr=1e-3, batch=b, seq_len=256,
+                              device="cuda")
+    params, opt, loss_fn, batch_fn = train_mod._lm_pipeline(args)
+    step = train_mod.make_step(opt, loss_fn)
+    state = (params, opt.init(params), None)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        batch = batch_fn(i)
+        t0 = time.perf_counter()
+        state = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = dict(batch=b, step_ms=_median(times[1:]), cold_ms=times[0],
+               loss=float(state[2]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[lm] lm-100m train step at (batch, seq) = ({b}, 256) on {card}: "
+          f"{out['step_ms']:.1f} ms (median of 3 warm; cold "
+          f"{out['cold_ms']:.1f}), loss {out['loss']:.4f}, peak device "
+          f"memory {out['peak_gb']:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}")
+    if not np.isfinite(out["loss"]):
+        raise AssertionError("lm-100m: non-finite loss")
+    return out
+
+
+def lm_train_100m(card: str) -> dict:
+    """launch/train.py's LM pipeline (lm-100m, AdamW) on the card: in
+    process at the CLI's defaults (batch 256, seq 256), which may not fit
+    (the run says so), and at LM_TRAIN_BATCH; then the CLI itself at
+    LM_TRAIN_BATCH, run and resumed."""
+    try:
+        defaults = _lm_100m_steps(LM_CLI_BATCH, card)
+    except torch.OutOfMemoryError as e:
+        # a measurement: the defaults' peak exceeds the card
+        defaults = None
+        print(f"[lm] lm-100m at the CLI's defaults (batch {LM_CLI_BATCH}, "
+              f"seq 256) does not fit one card: {str(e).splitlines()[0]}")
+    # outside the handler, where the failed step's tensors are free
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = LM_TRAIN_BATCH
+    out = _lm_100m_steps(b, card)
+    out["defaults"] = defaults
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    try:
+        outs = []
+        for steps in (4, 6):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--model",
+                 "lm", "--steps", str(steps), "--batch", str(b),
+                 "--seq-len", "256", "--ckpt-every", "2", "--log-every", "1",
+                 "--ckpt-dir", ckpt_dir, "--device", "cuda"], env=env,
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            for line in r.stdout.splitlines():
+                print(f"[cli --model lm --steps {steps}] {line}")
+            if r.returncode:
+                raise AssertionError(f"the LM training CLI failed:\n"
+                                     f"{r.stderr[-3000:]}")
+            print(f"[cli --model lm --steps {steps}] "
+                  f"{time.perf_counter() - t0:.1f} s in all")
+            outs.append(r.stdout)
+        resumed_at = checkpoint.latest_step(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not ("final loss" in outs[0] and outs[0].count("\nstep ") == 4
+            and "final loss" in outs[1] and outs[1].count("\nstep ") == 2
+            and resumed_at == 6):
+        raise AssertionError("the LM CLI did not train 4 steps and then "
+                             "resume for 2 more")
+    return out
+
+
+def phase_lm(card: str) -> dict:
+    """The LM family on the card (no TPU kernel lies on its path, so it
+    launches none of the port's kernels): the five archs in bf16 at full
+    width (qwen3-1.7b at full depth), each decode held against its full
+    forward; deepseek's train_loss with MTP; the narrow variants card
+    against CPU; the attention yardstick; lm-100m training and its CLI."""
+    reset_counts()
+    print(f"[lm] device memory held by earlier phases on {card}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    out: dict = {"archs": {}}
+    # first, while the allocator holds nothing: its peak is near the card's
+    out["train"] = lm_train_100m(card)
+    for name, cut, b, check in LM_RUNS:
+        res = lm_serve(name, cut, b, card)
+        params, cfg = res.pop("params"), res.pop("cfg")
+        if name == "deepseek-v3-671b":
+            out["deepseek_train"] = lm_train_deepseek(params, cfg, card)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["err"] = lm_check(name, cfg, check, card)
+        out["archs"][name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_card_vs_cpu(card)
+    out["attention"] = lm_attention_yardstick(card)
+    out["layers"] = lm_layers(card)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[lm] launches of the port's kernels over the phase: {launches}")
+    if any(launches.values()):
+        raise AssertionError("the LM path launched a DLRM kernel")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1683,10 +2318,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recsys = phase_recsys(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_out = phase_lm(card)
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
-               "recsys": recsys["launches"]}
+               "recsys": recsys["launches"], "lm": lm_out["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]
@@ -1721,6 +2359,29 @@ def main() -> int:
     print(f"[recsys] on {card}: "
           + "; ".join(f"{k} {v['ms']:.3f} ms" for k, v in
                       recsys["results"].items() if "ms" in v))
+    for name, r in lm_out["archs"].items():
+        print(f"[lm] {name} on {card}: batch {r['batch']}, prefill "
+              f"{r['prefill_ms']:.1f} ms (bound {r['prefill_bound_ms']:.1f}), "
+              f"{r['prefill_tok_s']:.0f} tokens/s; decode "
+              f"{r['decode_ms']:.2f} ms/step (bound "
+              f"{r['decode_bound_ms']:.2f}), {r['decode_tok_s']:.0f} "
+              f"tokens/s; peak {r['peak_gb']:.2f} GB (least "
+              f"{r['least_gb']:.2f}); decode vs full: "
+              f"float32 max abs {r['err']:.3e}, bf16 drift "
+              f"{r['bf16_drift'][1]:.3e} relative L2")
+    att = lm_out["attention"]
+    lay = lm_out["layers"]
+    print(f"[lm] layers on {card}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in lay["ms"].items())
+          + "; bounds " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in lay["bound_ms"].items()))
+    tr = lm_out["train"]
+    print(f"[lm] lm-100m on {card}: batch {tr['batch']}, seq 256: "
+          f"{tr['step_ms']:.1f} ms per warm step, peak {tr['peak_gb']:.2f} GB")
+    print(f"[lm] attention on {card}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in att["ms"].items())
+          + f"; bound {att['bound_ms']:.3f} / {att['bound_fwd_bwd_ms']:.3f}"
+          f" ms")
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

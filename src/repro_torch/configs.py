@@ -8,7 +8,11 @@ dlrm-mlperf and dlrm-rm2 shapes and the sharding rules
 (``repro.configs``), the recsys cell shapes (``repro.configs.
 recsys_common.RECSYS_SHAPES``) and the DIN, BERT4Rec and GraphSAGE configs
 of ``repro.configs.{din_arch,bert4rec_arch,graphsage_reddit}`` (constants
-only, without the registry's bundles). ``arch_shape`` is the
+only, without the registry's bundles), and the five LM archs'
+``CONFIG``/``MOE``/``MLA`` of ``repro.configs.{qwen3_1_7b,qwen2_0_5b,
+nemotron_4_15b,qwen3_moe_30b_a3b,deepseek_v3_671b}`` with their parameter
+counts, ``lm-100m`` (``repro.launch.train``) and ``LM_SHAPES``
+(``repro.configs.lm_common``). ``arch_shape`` is the
 arch resolution of ``repro.serving.deployment``; ``arch_model_config`` goes
 through the port's own ``DeploymentConfig``.
 """
@@ -21,6 +25,9 @@ from repro_torch.distributed.shardings import P
 from repro_torch.models.bert4rec import Bert4RecConfig
 from repro_torch.models.din import DINConfig
 from repro_torch.models.graphsage import SAGEConfig
+from repro_torch.models.lm import LMConfig
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +162,110 @@ SAGE_SHAPES = {
                          d_feat=100),
     "molecule": dict(n_nodes=30, n_edges=64, batch=128),
 }
+
+
+# --------------------------------------------------------------- LM archs --
+# qwen3-1.7b [hf:Qwen/Qwen3-8B family; dense] — 28L d2048 16H (GQA kv=8)
+# d_ff 6144, vocab 151936, qk-norm, tied embeddings.
+QWEN3_1_7B = LMConfig(
+    name="qwen3-1.7b", n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_head=128, d_ff=6144, vocab=151936, act="swiglu", qk_norm=True,
+    rope_theta=1_000_000.0, tie_embeddings=True)
+
+# qwen2-0.5b [arXiv:2407.10671; dense] — 24L d896 14H (GQA kv=2)
+# d_ff 4864, vocab 151936, QKV bias, tied embeddings.
+QWEN2_0_5B = LMConfig(
+    name="qwen2-0.5b", n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+    d_head=64, d_ff=4864, vocab=151936, act="swiglu", qkv_bias=True,
+    rope_theta=1_000_000.0, tie_embeddings=True,
+    context_parallel=True)
+
+# nemotron-4-15b [arXiv:2402.16819; dense] — 32L d6144 48H (GQA kv=8)
+# d_ff 24576, vocab 256000, squared-ReLU (non-gated) FFN, untied head.
+NEMOTRON_4_15B = LMConfig(
+    name="nemotron-4-15b", n_layers=32, d_model=6144, n_heads=48,
+    n_kv_heads=8, d_head=128, d_ff=24576, vocab=256000, act="squared_relu",
+    rope_theta=10_000.0, tie_embeddings=False)
+
+# qwen3-moe-30b-a3b [hf:Qwen/Qwen3-30B-A3B; moe] — 48L d2048 32H (GQA kv=4,
+# d_head 128), 128 experts top-8 (d_expert 768), vocab 151936, qk-norm.
+QWEN3_MOE_30B_A3B_MOE = MoEConfig(d_model=2048, d_expert=768, n_experts=128,
+                                  top_k=8, capacity_factor=1.5,
+                                  norm_topk=True)
+QWEN3_MOE_30B_A3B = LMConfig(
+    name="qwen3-moe-30b-a3b", n_layers=48, d_model=2048, n_heads=32,
+    n_kv_heads=4, d_head=128, d_ff=768, vocab=151936, act="swiglu",
+    qk_norm=True, rope_theta=1_000_000.0, moe=QWEN3_MOE_30B_A3B_MOE,
+    n_dense_layers=0, ep_axis="model")
+
+# deepseek-v3-671b [arXiv:2412.19437; moe] — 61L d7168 128H MLA,
+# 1 shared + 256 routed experts top-8 (d_expert 2048), first 3 layers dense
+# (d_ff 18432), vocab 129280, MTP head.
+DEEPSEEK_V3_671B_MLA = MLAConfig(d_model=7168, n_heads=128, q_lora_rank=1536,
+                                 kv_lora_rank=512, nope_head_dim=128,
+                                 rope_head_dim=64, v_head_dim=128,
+                                 rope_theta=10_000.0)
+DEEPSEEK_V3_671B_MOE = MoEConfig(d_model=7168, d_expert=2048, n_experts=256,
+                                 top_k=8, n_shared=1, capacity_factor=1.25,
+                                 norm_topk=True,
+                                 router_bias=True)   # aux-loss-free bias
+DEEPSEEK_V3_671B = LMConfig(
+    name="deepseek-v3-671b", n_layers=61, d_model=7168, n_heads=128,
+    n_kv_heads=128, d_ff=18432, vocab=129280, act="swiglu",
+    rope_theta=10_000.0, moe=DEEPSEEK_V3_671B_MOE, n_dense_layers=3,
+    mla=DEEPSEEK_V3_671B_MLA, mtp=True, ep_axis="model")
+
+LM_ARCHS = {c.name: c for c in (QWEN3_1_7B, QWEN2_0_5B, NEMOTRON_4_15B,
+                                QWEN3_MOE_30B_A3B, DEEPSEEK_V3_671B)}
+
+# lm-100m: the LM that ``launch.train --model lm`` trains
+LM_100M = LMConfig(name="lm-100m", n_layers=8, d_model=512, n_heads=8,
+                   n_kv_heads=4, d_ff=2048, vocab=32_000, qk_norm=True,
+                   tie_embeddings=True, remat=False, q_chunk=128,
+                   kv_chunk=128)
+
+# the LM cells (repro.configs.lm_common.LM_SHAPES)
+LM_SHAPES = {
+    "train_4k": dict(seq=4096, batch=256),
+    "prefill_32k": dict(seq=32768, batch=32),
+    "decode_32k": dict(seq=32768, batch=128),
+}
+
+
+def lm_attn_params(c: LMConfig) -> int:
+    """Weights of one attention block (GQA or MLA), norms and biases
+    aside."""
+    if c.mla is None:
+        return (c.d_model * c.head_dim * (c.n_heads + 2 * c.n_kv_heads)
+                + c.n_heads * c.head_dim * c.d_model)
+    a = c.mla
+    return (c.d_model * a.q_lora_rank
+            + a.q_lora_rank * c.n_heads * a.qk_head_dim
+            + c.d_model * a.kv_lora_rank + c.d_model * a.rope_head_dim
+            + a.kv_lora_rank * c.n_heads * (a.nope_head_dim + a.v_head_dim)
+            + c.n_heads * a.v_head_dim * c.d_model)
+
+
+def lm_n_active(name: str) -> float:
+    """The parameter count each LM arch's config module reports (its
+    ``n_params()`` or ``n_active()``, the registry's ``n_active``), by the
+    module's own formula."""
+    c = LM_ARCHS[name]
+    if c.moe is None:
+        ffn = (3 if c.act == "swiglu" else 2) * c.d_model * c.d_ff
+        embed = (1 if c.tie_embeddings else 2) * c.vocab * c.d_model
+        return embed + c.n_layers * (lm_attn_params(c) + ffn)
+    m = c.moe
+    expert = 3 * c.d_model * m.d_expert
+    if c.mla is None:
+        per_layer = lm_attn_params(c) + m.top_k * expert \
+            + c.d_model * m.n_experts
+        return c.vocab * c.d_model + c.n_layers * per_layer
+    dense_l = lm_attn_params(c) + 3 * c.d_model * c.d_ff
+    moe_l = lm_attn_params(c) + (m.top_k + m.n_shared) * expert \
+        + c.d_model * m.n_experts
+    return (c.vocab * c.d_model * 2 + c.n_dense_layers * dense_l
+            + (c.n_layers - c.n_dense_layers) * moe_l)
 
 
 def arch_shape(name: str) -> DLRMConfig:

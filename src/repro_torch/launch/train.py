@@ -1,9 +1,11 @@
-"""Training entry point: the DLRM pipeline of ``repro.launch.train`` on torch.
+"""Training entry point: ``repro.launch.train``'s two pipelines on torch.
 
-Trains the DLRM on synthetic CTR data with the fault-tolerant ``TrainLoop``
-(atomic checkpoints, resume from the newest one, straggler hook) on one
-device: the card by default (``--device cuda`` raises without one),
-``--device cpu`` for the kernels' plain versions. It is the paper's offline
+``--model dlrm`` (the default) trains the DLRM on synthetic CTR data and
+``--model lm`` the decoder-only ``lm-100m`` on synthetic tokens, each with
+the fault-tolerant ``TrainLoop`` (atomic checkpoints, resume from the
+newest one, straggler hook) on one device: the card by default
+(``--device cuda`` raises without one), ``--device cpu`` for the kernels'
+plain versions. The DLRM pipeline is the paper's offline
 phase and training stage (Fig. 8): a sampled sweep counts row accesses, the
 tables are stored in access-frequency order (AF remap), and each step's
 forward runs through the port's two kernels (one grouped SLS, one fused
@@ -14,14 +16,19 @@ the reference's; the batches are the same numbers for the same seed.
     PYTHONPATH=src python -m repro_torch.launch.train --model dlrm \\
         --steps 200 --batch 256 --ckpt-dir /path/to/ckpt
 
-``--model lm`` waits for the port of ``models/lm.py`` (ROADMAP A13).
+The LM pipeline is the reference's ``_lm_pipeline``: ``configs.LM_100M``
+(8 layers, d 512, vocab 32,000; 47.85M params) with AdamW (weight decay
+0.1), on the reference's batches (``np.random.default_rng(step)`` tokens,
+whatever the seed), through no kernel of the port (the LM has none).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model lm \\
+        --steps 2 --batch 2 --seq-len 32 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 import tempfile
 import time
 
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim, tree
-from repro_torch.configs import DLRMConfig, small_dlrm
+from repro_torch.configs import LM_100M, DLRMConfig, small_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.distributed.shardings import sync_grads
 from repro_torch.runtime import LoopConfig, TrainLoop
@@ -115,6 +122,38 @@ def _dlrm_pipeline(args, remap: bool, cfg: DLRMConfig | None = None):
                                                device)
 
 
+def make_lm_batch_fn(vocab: int, batch: int, seq_len: int,
+                     device: torch.device):
+    """``batch_fn(step)``: the reference's synthetic LM batch of ``step``,
+    ``(batch, seq_len + 1)`` uniform tokens from ``default_rng(step)``
+    split into inputs and next-token targets, on ``device``."""
+
+    def batch_fn(step):
+        toks = np.random.default_rng(step).integers(0, vocab,
+                                                    (batch, seq_len + 1))
+        toks = torch.from_numpy(toks.astype(np.int32)).to(device)
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    return batch_fn
+
+
+def _lm_pipeline(args):
+    """Returns (params, opt, loss_fn, batch_fn) for LM training of
+    ``lm-100m`` on ``args.device``."""
+    from repro_torch.models import lm
+
+    cfg = LM_100M
+    device = resolve_device(args.device)
+    params = lm.init(args.seed, cfg, device=device)
+    opt = optim.adamw(args.lr, weight_decay=0.1)
+
+    def loss_fn(p, batch):
+        return lm.train_loss(p, batch, cfg)
+
+    return params, opt, loss_fn, make_lm_batch_fn(cfg.vocab, args.batch,
+                                                  args.seq_len, device)
+
+
 def make_step(opt, loss_fn, mesh=None, param_specs=None):
     """``step(state, batch) -> state`` for state ``(params, opt_state,
     loss)``: the loss and its gradient with respect to every parameter
@@ -129,8 +168,10 @@ def make_step(opt, loss_fn, mesh=None, param_specs=None):
         params, opt_state, _ = state
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss = loss_fn(tree.unflatten(params, leaves), batch)
-        grads = tree.unflatten(params, list(torch.autograd.grad(loss,
-                                                                leaves)))
+        # a leaf the loss does not reach (a router bias that only picks
+        # experts) gets a zero gradient, as jax.grad gives it
+        grads = tree.unflatten(params, list(torch.autograd.grad(
+            loss, leaves, materialize_grads=True)))
         if mesh is not None:
             grads = sync_grads(mesh, grads, param_specs)
         params, opt_state = opt.update(grads, opt_state, params)
@@ -159,12 +200,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.model == "lm":
-        print("--model lm: the LM pipeline waits for the port of "
-              "models/lm.py (ROADMAP A13)", file=sys.stderr)
-        return 2
-    params, opt, loss_fn, batch_fn = _dlrm_pipeline(
-        args, remap=not args.no_remap)
+    if args.model == "dlrm":
+        params, opt, loss_fn, batch_fn = _dlrm_pipeline(
+            args, remap=not args.no_remap)
+    else:
+        params, opt, loss_fn, batch_fn = _lm_pipeline(args)
 
     n_params = sum(p.numel() for p in tree.leaves(params))
     print(f"model={args.model} params={n_params/1e6:.1f}M devices=1")

@@ -1,0 +1,273 @@
+"""Attention: chunked online-softmax (flash-style) attention and the decode
+path, on torch tensors. Port of ``repro.models.attention``.
+
+``flash_attention`` is the reference's algorithm in plain PyTorch: a loop
+over query chunks and, inside it, over KV chunks carries the running (max,
+denom, acc) triple, so the largest score block is ``(B, H, q_chunk,
+kv_chunk)`` instead of ``(B, H, T, S)``. Its gradient is the
+FlashAttention-2 backward (Dao, arXiv:2307.08691) as one
+``torch.autograd.Function``: the forward saves only ``(q, k, v, out,
+lse)`` and the backward recomputes each probability block from the
+log-sum-exp, as the reference's ``custom_vjp`` does. Autograd through the
+chunk loops would save every score block instead (O(T*S) memory).
+
+Kept from the reference: ``NEG_INF = -1e30`` (not ``-inf``), the
+probabilities rounded to ``q``'s dtype before the PV product, ``l_safe =
+max(l, 1e-37)``, ``ds`` rounded to ``q``'s dtype, causal masking in global
+positions (query row 0 at ``q_start``, by default ``S - T``), a ``v`` head
+dim that may differ from ``q``'s (MLA), and the fall back to
+``attention_dense`` when ``T % q_chunk`` or ``S % kv_chunk`` is nonzero.
+
+Two things differ in how, not in what. GQA heads share their KV head
+through the matmul (the ``n_rep`` query heads of a KV head are rows of one
+product) instead of a repeated copy, so the backward's ``dk``/``dv`` sum
+the heads of a group in float32 inside the product where the reference
+rounds each head's block to ``q``'s dtype first (equal in float32). And a
+KV chunk that lies wholly past a causal query chunk's last position is
+skipped when every query row of the chunk sees key 0: the reference's
+iteration over such a chunk adds exact zeros (``exp(-1e30 - m) = 0`` with
+``m`` finite), so the result is the same.
+
+``decode_attention`` is the single-token serve path over a KV cache.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, dh) -> (B, S, KV*n_rep, dh) for GQA."""
+    if n_rep == 1:
+        return k
+    b, s, kv, dh = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, dh) \
+        .reshape(b, s, kv * n_rep, dh)
+
+
+def attention_dense(q, k, v, causal: bool = True, scale: float | None = None):
+    """Reference full-materialisation attention. q (B,T,H,dh) k/v (B,S,KV,dh)."""
+    b, t, h, dh = q.shape
+    s = k.shape[1]
+    n_rep = h // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = scale if scale is not None else dh ** -0.5
+    logits = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    if causal:
+        mask = torch.ones((t, s), dtype=torch.bool,
+                          device=q.device).tril(diagonal=s - t)
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", w, v)
+
+
+def _grouped(x: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B, T, H, d) -> (B, KV, T * n_rep, d), row ``t * n_rep + r`` the
+    query head ``kv_head * n_rep + r`` at position ``t``: a chunk of
+    positions is a contiguous range of rows, and one KV head's queries are
+    one matrix."""
+    b, t, h, d = x.shape
+    return x.reshape(b, t, kv, h // kv, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, kv, t * (h // kv), d)
+
+
+def _ungrouped(x: torch.Tensor, t: int, h: int) -> torch.Tensor:
+    """Inverse of ``_grouped``: (B, KV, T * n_rep, d) -> (B, T, H, d)."""
+    b, kv, _, d = x.shape
+    return x.reshape(b, kv, t, h // kv, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, t, h, d)
+
+
+class _Blocks:
+    """The chunking of one call: (GQA-grouped) row ranges and positions of
+    each query chunk, KV ranges, and which blocks are masked or skipped."""
+
+    def __init__(self, t, s, n_rep, q_start, causal, q_chunk, kv_chunk,
+                 device):
+        self.nq, self.nk = t // q_chunk, s // kv_chunk
+        self.qc, self.kc, self.n_rep = q_chunk, kv_chunk, n_rep
+        self.q_start, self.causal = q_start, causal
+        # global position of every grouped row, and of every key
+        self.row_pos = (q_start + torch.arange(t, device=device)
+                        ).repeat_interleave(n_rep)
+        self.k_pos = torch.arange(s, device=device)
+
+    def rows(self, i: int) -> slice:
+        r = self.qc * self.n_rep
+        return slice(i * r, (i + 1) * r)
+
+    def keys(self, j: int) -> slice:
+        return slice(j * self.kc, (j + 1) * self.kc)
+
+    def kv_chunks(self, i: int):
+        """``(j, mask or None)`` for the KV chunks query chunk ``i`` reads:
+        ``None`` where no key of the block is masked."""
+        q_lo = self.q_start + i * self.qc
+        q_hi = q_lo + self.qc - 1
+        for j in range(self.nk):
+            k_lo, k_hi = j * self.kc, (j + 1) * self.kc - 1
+            if not self.causal or k_hi <= q_lo:
+                yield j, None
+            elif k_lo > q_hi and q_lo >= 0:
+                return        # this chunk and every later one add zeros
+            else:
+                yield j, (self.k_pos[self.keys(j)][None, :]
+                          <= self.row_pos[self.rows(i)][:, None])
+
+
+def _scores(qb, kb, mask, scale):
+    logits = (qb @ kb.transpose(-1, -2) * scale).float()
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    return logits
+
+
+def _flash_fwd(q, k, v, q_start, causal, q_chunk, kv_chunk, scale):
+    """Returns (out (B,T,H,dv), lse (B,KV,T*n_rep) float32)."""
+    b, t, h, _ = q.shape
+    s, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    blk = _Blocks(t, s, h // kv, q_start, causal, q_chunk, kv_chunk,
+                  q.device)
+    qg, kg, vg = _grouped(q, kv), _grouped(k, kv), _grouped(v, kv)
+    out = torch.empty((b, kv, t * (h // kv), dv), dtype=q.dtype,
+                      device=q.device)
+    lse = torch.empty((b, kv, t * (h // kv)), dtype=torch.float32,
+                      device=q.device)
+    for i in range(blk.nq):
+        rows = blk.rows(i)
+        qb = qg[:, :, rows]
+        n = qb.shape[2]
+        m = torch.full((b, kv, n), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        lsum = torch.zeros((b, kv, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kv, n, dv), dtype=torch.float32,
+                          device=q.device)
+        for j, mask in blk.kv_chunks(i):
+            keys = blk.keys(j)
+            logits = _scores(qb, kg[:, :, keys], mask, scale)
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            lsum = lsum * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + (p.to(q.dtype)
+                                            @ vg[:, :, keys]).float()
+            m = m_new
+        l_safe = lsum.clamp_min(1e-37)
+        out[:, :, rows] = (acc / l_safe[..., None]).to(q.dtype)
+        lse[:, :, rows] = m + torch.log(l_safe)
+    return _ungrouped(out, t, h), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, q_start, causal, q_chunk, kv_chunk,
+               scale):
+    """FlashAttention-2 backward: recompute p-blocks from the saved lse."""
+    b, t, h, dh = q.shape
+    s, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    blk = _Blocks(t, s, h // kv, q_start, causal, q_chunk, kv_chunk,
+                  q.device)
+    qg, kg, vg = _grouped(q, kv), _grouped(k, kv), _grouped(v, kv)
+    dog = _grouped(dout.to(q.dtype), kv)
+    # delta_i = rowsum(dO_i * O_i) in float32
+    delta = (dog.float() * _grouped(out, kv).float()).sum(-1)
+    dq = torch.empty((b, kv, t * (h // kv), dh), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((b, kv, s, dh), dtype=torch.float32, device=q.device)
+    dvg = torch.zeros((b, kv, s, dv), dtype=torch.float32, device=q.device)
+    for i in range(blk.nq):
+        rows = blk.rows(i)
+        qb, dob = qg[:, :, rows], dog[:, :, rows]
+        lse_b, d_b = lse[:, :, rows, None], delta[:, :, rows, None]
+        dq_b = torch.zeros_like(dq[:, :, rows])
+        for j, mask in blk.kv_chunks(i):
+            keys = blk.keys(j)
+            kb, vb = kg[:, :, keys], vg[:, :, keys]
+            p = torch.exp(_scores(qb, kb, mask, scale) - lse_b)
+            dvg[:, :, keys] += (p.to(q.dtype).transpose(-1, -2)
+                                @ dob).float()
+            dp = (dob @ vb.transpose(-1, -2)).float()
+            ds = (p * (dp - d_b) * scale).to(q.dtype)
+            dq_b += (ds @ kb).float()
+            dk[:, :, keys] += (ds.transpose(-1, -2) @ qb).float()
+        dq[:, :, rows] = dq_b
+    return (_ungrouped(dq, t, h).to(q.dtype),
+            _ungrouped(dk, s, kv).to(k.dtype),
+            _ungrouped(dvg, s, kv).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``_flash_fwd`` with the FlashAttention-2 backward; saves ``(q, k, v,
+    out, lse)`` and nothing per chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, causal, q_chunk, kv_chunk, scale):
+        out, lse = _flash_fwd(q, k, v, q_start, causal, q_chunk, kv_chunk,
+                              scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_start, causal, q_chunk, kv_chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    scale: float | None = None, q_start: int | None = None):
+    """Chunked online-softmax attention; same contract as attention_dense.
+
+    ``q_start`` (int): global position of query row 0 for callers whose q
+    block is a sequence shard. When given, the implied k/v positions are
+    0..S and causality is evaluated in global coordinates (``q_start``
+    defaults to S - T, the standard suffix alignment)."""
+    t, dh = q.shape[1], q.shape[3]
+    s = k.shape[1]
+    q_chunk = min(q_chunk, t)
+    kv_chunk = min(kv_chunk, s)
+    if t % q_chunk or s % kv_chunk:
+        # the reference's semantics: shapes that do not chunk go dense
+        if q_start is not None:
+            raise ValueError("q_start needs chunkable shapes")
+        return attention_dense(q, k, v, causal, scale)
+    scale = scale if scale is not None else dh ** -0.5
+    if q_start is None:
+        q_start = s - t
+    return FlashAttention.apply(q, k, v, int(q_start), causal, q_chunk,
+                                kv_chunk, scale)
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, length) -> None:
+    """Write ``new`` (B, 1, ...) into slot ``length`` of ``cache`` (B, S,
+    ...) in place, the slot clamped into ``[0, S - 1]`` as
+    ``jax.lax.dynamic_update_slice_in_dim`` clamps its start: a write at or
+    past the end lands in the last slot."""
+    slot = min(max(int(length), 0), cache.shape[1] - 1)
+    cache[:, slot:slot + 1] = new.to(cache.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length, scale: float | None = None):
+    """One-token attention over a KV cache.
+
+    q (B, H, dh); caches (B, S, KV, dh); ``length`` = #valid cache slots
+    (an int, or a tensor of shape () or (B,)). A cache in another dtype
+    than ``q`` is promoted as JAX promotes.
+    """
+    b, s, kv, dh = k_cache.shape
+    h = q.shape[1]
+    n_rep = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    qr = q.reshape(b, kv, n_rep, dh).to(dt)
+    logits = torch.einsum("bknd,bskd->bkns", qr, k_cache.to(dt)) * scale
+    n_valid = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s, device=q.device)[None, :] < n_valid
+    logits = torch.where(valid[:, None, None, :], logits.float(), NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    dt = torch.promote_types(w.dtype, v_cache.dtype)
+    out = torch.einsum("bkns,bskd->bknd", w.to(dt), v_cache.to(dt))
+    return out.reshape(b, h, dh)

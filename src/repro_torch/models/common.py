@@ -76,3 +76,42 @@ def ln_init(d: int, dtype=torch.float32,
             device: str | torch.device = "cpu") -> dict:
     return {"gamma": torch.ones((d,), dtype=dtype, device=device),
             "beta": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis: the mean square in float32, its
+    ``rsqrt`` cast back to ``x``'s dtype before the multiply (the
+    reference's rounding, not ``F.rms_norm``'s)."""
+    var = (x.float() ** 2).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma
+
+
+def rms_init(d: int, dtype=torch.float32,
+             device: str | torch.device = "cpu") -> dict:
+    return {"gamma": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    """Primer's squared ReLU (Nemotron-4 FFN activation)."""
+    r = torch.relu(x)
+    return r * r
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0, dtype=torch.float32):
+    """(..., T) int positions -> cos/sin of shape (..., T, head_dim/2): the
+    angles in float32, cast to ``dtype``."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device)
+                           / head_dim))
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., T, H, D) with cos/sin (..., T, 1 or H, D/2). Rotates the two
+    halves of the head dim against each other (not interleaved pairs)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)

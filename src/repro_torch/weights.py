@@ -7,7 +7,10 @@ same on both sides. ``from_jax_params`` takes a DLRM's (tables (V, D), and
 ``bot``/``top`` lists of ``{"w": (d_in, d_out), "b": (d_out,)}``) and
 carries its remap state over (``rank_of`` arrays and ``hot_sizes``, whose
 kernel descriptors it builds); ``from_jax_tree`` copies any other model's
-tree (DIN, BERT4Rec, GraphSAGE) as it is.
+tree (DIN, BERT4Rec, GraphSAGE, the LMs) as it is. An LM tree keeps the
+reference's layout: ``dense_layers``/``moe_layers`` stacked on a leading
+``L`` dim, bf16 weights beside float32 MoE routers (each leaf in its own
+dtype), and the MTP block's unstacked layer.
 """
 
 from __future__ import annotations

@@ -575,3 +575,101 @@ def test_bert4rec_forward_on_card_vs_cpu(gen):
     got = bert4rec.score(on_card, {k: v.cuda() for k, v in batch.items()},
                          cfg)
     torch.testing.assert_close(got.cpu(), want, **_recsys_tol())
+
+
+def _lm_small(**kw):
+    from repro_torch.models import lm
+    base = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                d_ff=128, vocab=256, rope_theta=10_000.0, remat=False,
+                q_chunk=32, kv_chunk=32)
+    return lm.LMConfig(**{**base, **kw})
+
+
+def _lm_moe_mla():
+    """The reduced deepseek-v3 variant: MLA, shared + routed MoE with a
+    router bias, the MTP head."""
+    from repro_torch.models.mla import MLAConfig
+    from repro_torch.models.moe import MoEConfig
+    return _lm_small(
+        n_heads=4, n_kv_heads=4, n_dense_layers=1, mtp=True,
+        mla=MLAConfig(d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+                      nope_head_dim=16, rope_head_dim=8, v_head_dim=16),
+        moe=MoEConfig(d_model=64, d_expert=32, n_experts=4, top_k=2,
+                      n_shared=1, router_bias=True, capacity_factor=2.0))
+
+
+def _on_card(params):
+    from repro_torch import tree
+    return tree.unflatten(params, [x.cuda() for x in tree.leaves(params)])
+
+
+@pytest.mark.parametrize("variant", ["gqa", "moe-mla"])
+def test_lm_prefill_and_decode_on_card_vs_cpu(gen, variant):
+    from repro_torch.models import lm
+    cfg = _lm_small(qk_norm=True) if variant == "gqa" else _lm_moe_mla()
+    params = lm.init(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(3))
+    pc = _on_card(params)
+    with torch.inference_mode():
+        want, cache = lm.prefill(params, toks[:, :64], cfg)
+        got, ccache = lm.prefill(pc, toks[:, :64].cuda(), cfg)
+        torch.testing.assert_close(got.cpu(), want, **_recsys_tol())
+        for k in cache:
+            torch.testing.assert_close(ccache[k].cpu(), cache[k],
+                                       **_recsys_tol())
+        grow = lambda c: {k: torch.nn.functional.pad(  # noqa: E731
+            v, [0, 0] * (v.ndim - 3) + [0, 1]) for k, v in c.items()}
+        want, _ = lm.decode_step(params, grow(cache), toks[:, 64], 64, cfg)
+        got, _ = lm.decode_step(pc, grow(ccache), toks[:, 64].cuda(), 64,
+                                cfg)
+    torch.testing.assert_close(got.cpu(), want, **_recsys_tol())
+
+
+def test_lm_train_step_on_card_vs_cpu(gen):
+    """One AdamW step of the reduced deepseek variant (train_loss with MTP),
+    card against CPU: the loss, and every updated param by relative L2."""
+    from repro_torch import optim, tree
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import lm
+    cfg = _lm_moe_mla()
+    params = lm.init(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(4))
+    opt = optim.adamw(1e-3, weight_decay=0.1)
+
+    def run(p, device):
+        batch = {"tokens": toks[:, :-1].to(device),
+                 "targets": toks[:, 1:].to(device)}
+        step = make_step(opt, lambda q, b: lm.train_loss(q, b, cfg))
+        return step((p, opt.init(p), None), batch)
+
+    new_c, _, loss_c = run(_on_card(params), "cuda")
+    new, _, loss = run(params, "cpu")
+    torch.testing.assert_close(loss_c.cpu(), loss, **_recsys_tol())
+    for a, b, old in zip(tree.leaves(new_c), tree.leaves(new),
+                         tree.leaves(params), strict=True):
+        d_card, d_cpu = a.cpu() - old, b - old
+        assert torch.linalg.vector_norm(d_card - d_cpu) <= \
+            1e-3 * torch.linalg.vector_norm(d_cpu) + 1e-12
+
+
+def test_flash_attention_on_card_vs_cpu(gen):
+    """Forward and the FlashAttention-2 backward, GQA and causal, with the
+    chunk skip: float32 on the card against the CPU (the reference's
+    tolerances, tests/test_attention.py)."""
+    from repro_torch.models.attention import flash_attention
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 512, 8, 32, generator=g)
+    k = torch.randn(2, 512, 4, 32, generator=g)
+    v = torch.randn(2, 512, 4, 32, generator=g)
+    dout = torch.randn(2, 512, 8, 32, generator=g)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, q_chunk=128, kv_chunk=128)
+        grads = torch.autograd.grad(out, leaves, dout.to(dev))
+        outs.append([out.detach().cpu()] + [x.cpu() for x in grads])
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=2e-5)
+    for a, b in zip(outs[1][1:], outs[0][1:], strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4)
