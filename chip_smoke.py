@@ -78,7 +78,18 @@ Phases, each of which fails the run when it fails:
    ``flash_attention`` beside ``F.scaled_dot_product_attention`` (a
    yardstick the path never calls); lm-100m training in process and
    through ``python -m repro_torch.launch.train --model lm``, run and
-   resumed; no launch of either kernel.
+   resumed; no launch of either kernel;
+12. lm_mesh: the LM under a (1, 1) ("data", "model") mesh over NCCL at
+   world size 1, through the registry's plans (``configs.get_arch``) at
+   full width with the depth cut as in phase 11, each against the same
+   plan without a mesh: qwen3-moe-30b-a3b's prefill at (8, 4096) (sharded
+   expert parallelism) and 32 decode steps (the 2D serving layout),
+   deepseek-v3-671b's prefill at (2, 4096) (2D, in chunks of 2048 tokens,
+   against the mesh-free MoE over the same chunks) and 32 decode steps,
+   qwen2-0.5b's context-parallel prefill at (8, 4096) and one step of its
+   train plan (sequence sharding, AdamW): logits, caches, loss, every
+   gradient and every updated param, the mesh and mesh-free times, the
+   collectives per call and the peak memory; no launch of either kernel.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -2287,6 +2298,259 @@ def phase_lm(card: str) -> dict:
     return out
 
 
+# the lm_mesh phase: the LM's plans on a (1, 1) NCCL mesh against the same
+# plans without one, bf16 at full width with the depth the lm phase cuts;
+# held at the bf16 tolerance of the LM's parity tests (tests/test_torch_lm.py
+# BF16_TOL; at world size 1 both sides run the same ops, so 0 is expected)
+LM_MESH_TOL = dict(rtol=2e-2, atol=2e-2)
+LM_MESH_RUNS = (
+    ("qwen3-moe-30b-a3b", dict(n_layers=2), 8),
+    ("deepseek-v3-671b", dict(n_layers=2, n_dense_layers=1), 2),
+)
+LM_MESH_TRAIN = ("qwen2-0.5b", dict(n_layers=2), 8)
+
+
+def _cut_bundle(name: str, cut: dict):
+    """``name``'s registry bundle with its config's depth cut."""
+    import dataclasses
+    import functools
+    from repro_torch.models import lm
+    bundle = configs.get_arch(name)
+    cfg = dataclasses.replace(bundle.cfg, **cut)
+    return dataclasses.replace(bundle, cfg=cfg,
+                               init=functools.partial(lm.init, cfg=cfg))
+
+
+def _chunked_moe_ffn(chunk: int):
+    """``moe.moe_ffn`` applied ``chunk`` rows at a time where the rows are
+    more and divide: what the reference's 2D prefill with ``token_chunk``
+    computes on one device."""
+    from repro_torch.models import moe
+    whole = moe.moe_ffn
+
+    def fn(params, x, cfg):
+        x2d = x.reshape(-1, cfg.d_model)
+        n = x2d.shape[0]
+        if n <= chunk or n % chunk:
+            return whole(params, x, cfg)
+        return torch.cat([whole(params, x2d[lo:lo + chunk], cfg)
+                          for lo in range(0, n, chunk)]).reshape(x.shape)
+    return fn
+
+
+def _calls(mesh, fn, per: int = 1) -> dict:
+    """``fn()``'s collectives by kind (divided by ``per``)."""
+    mesh.calls.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    calls = {k: v / per for k, v in sorted(mesh.calls.items())}
+    return out, calls
+
+
+def lm_mesh_serve(mesh, name: str, cut: dict, b: int, card: str) -> dict:
+    """``name``'s prefill and decode plans under ``mesh`` against the same
+    plans without a mesh: prefill of (b, LM_SEQ), then LM_DECODE_STEPS
+    teacher-forced decode steps over LM_SEQ + LM_DECODE_STEPS slots; the
+    logits and caches held, the times and collectives printed."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import lm, moe
+    bundle = _cut_bundle(name, cut)
+    cfg = bundle.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(0, cfg, torch.bfloat16, device="cuda")
+    toks = _lm_tokens(cfg, b, LM_SEQ + LM_DECODE_STEPS, 7)
+    pre, dec = bundle.steps["prefill_32k"], bundle.steps["decode_32k"]
+    plans = {k: (pre.make_fn(bundle, m, False).fn,
+                 dec.make_fn(bundle, m, False).fn)
+             for k, m in (("mesh", mesh), ("mesh-free", None))}
+    chunk = pre.make_fn.keywords.get("ep_token_chunk")
+    layout = ("2D EP, token_chunk %d" % chunk if chunk else
+              "2D EP" if pre.make_fn.keywords.get("ep_2d") else "sharded EP")
+    out, ms, calls = {}, {}, {}
+    with torch.inference_mode():
+        for k, (prefill, decode) in plans.items():
+            # without a mesh, the chunked prefill's MoE over the same chunks
+            chunked = (mock.patch.object(moe, "moe_ffn",
+                                         _chunked_moe_ffn(chunk))
+                       if chunk and k == "mesh-free"
+                       else contextlib.nullcontext())
+            with chunked:
+                (logits, cache), c = _calls(
+                    mesh, lambda prefill=prefill: prefill(
+                        params, toks[:, :LM_SEQ]))
+                ms[k, "prefill"] = call_ms(lambda prefill=prefill: prefill(
+                    params, toks[:, :LM_SEQ]), reps=2)
+            calls[k, "prefill"] = c
+            cache = _grown(cache, LM_SEQ + LM_DECODE_STEPS)
+
+            def steps(decode=decode, cache=cache):
+                return torch.stack([decode(params, cache, toks[:, LM_SEQ + i],
+                                           length=LM_SEQ + i)[0]
+                                    for i in range(LM_DECODE_STEPS)], 1)
+            dlogits, c = _calls(mesh, steps, LM_DECODE_STEPS)
+            calls[k, "decode"] = c
+            out[k] = (logits, dlogits, cache)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            steps()          # the same steps again: each rewrites its slot
+            end.record()
+            torch.cuda.synchronize()
+            ms[k, "decode"] = start.elapsed_time(end) / LM_DECODE_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    label = f"{name} ({layout} prefill), bf16 on {card}"
+    errs = [compare(f"lm_mesh {label}: prefill logits, mesh vs mesh-free",
+                    out["mesh"][0], out["mesh-free"][0], LM_MESH_TOL),
+            compare(f"lm_mesh {label}: {LM_DECODE_STEPS} decode steps' "
+                    f"logits, mesh vs mesh-free", out["mesh"][1],
+                    out["mesh-free"][1], LM_MESH_TOL)]
+    for key in out["mesh"][2]:
+        errs.append(compare(f"lm_mesh {label}: cache {key!r} after decode, "
+                            f"mesh vs mesh-free", out["mesh"][2][key],
+                            out["mesh-free"][2][key], LM_MESH_TOL))
+    if not all(torch.isfinite(x).all() for x in out["mesh"][:2]):
+        raise AssertionError(f"{name}: non-finite logits under the mesh")
+    depth = (f"{lm_layer_counts(cfg)[0]} dense + {lm_layer_counts(cfg)[1]} "
+             f"MoE of {configs.LM_ARCHS[name].n_layers} layers")
+    print(f"[lm_mesh] {name} at full width, {depth}, on {card}: prefill "
+          f"(B, T) = ({b}, {LM_SEQ}) mesh / mesh-free "
+          f"{ms['mesh', 'prefill']:.1f} / {ms['mesh-free', 'prefill']:.1f} ms, "
+          f"collectives per prefill {calls['mesh', 'prefill']}; decode over "
+          f"{LM_SEQ + LM_DECODE_STEPS} slots {ms['mesh', 'decode']:.2f} / "
+          f"{ms['mesh-free', 'decode']:.2f} ms/step, collectives per step "
+          f"{calls['mesh', 'decode']}; peak device memory {peak:.2f} GB")
+    del params, out, plans
+    return dict(ms={f"{k} {p}": v for (k, p), v in ms.items()},
+                calls={p: calls["mesh", p] for p in ("prefill", "decode")},
+                peak_gb=peak, err=max(errs), layout=layout)
+
+
+def lm_mesh_train(mesh, card: str) -> dict:
+    """qwen2-0.5b (context-parallel attention) cut in depth: prefill of
+    (b, LM_SEQ) and one step of its train plan at (b, LM_SEQ) with
+    ``seq_shard`` (forward, backward, the data-parallel sum, AdamW) under
+    ``mesh`` against the same plans without one: logits, cache, loss, every
+    gradient and every updated param."""
+    from repro_torch.models import lm
+    name, cut, b = LM_MESH_TRAIN
+    bundle = _cut_bundle(name, cut)
+    cfg = bundle.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(0, cfg, torch.bfloat16, device="cuda")
+    toks = _lm_tokens(cfg, b, LM_SEQ + 1, 8)
+    pre = {k: bundle.steps["prefill_32k"].make_fn(bundle, m, False).fn
+           for k, m in (("mesh", mesh), ("mesh-free", None))}
+    train = {k: bundle.steps["train_4k"].make_fn(bundle, m, False,
+                                                 seq_shard=True)
+             for k, m in (("mesh", mesh), ("mesh-free", None))}
+    nmb = train["mesh"].args[2]["tokens"].shape[0]   # the microbatches
+    batch = {"tokens": toks[:, :-1].reshape(nmb, b // nmb, LM_SEQ),
+             "targets": toks[:, 1:].reshape(nmb, b // nmb, LM_SEQ)}
+    out, ms, calls = {}, {}, {}
+    with torch.inference_mode():
+        for k, fn in pre.items():
+            out[k, "prefill"], calls[k, "prefill"] = _calls(
+                mesh, lambda fn=fn: fn(params, toks[:, :LM_SEQ]))
+            ms[k, "prefill"] = call_ms(lambda fn=fn: fn(
+                params, toks[:, :LM_SEQ]), reps=2)
+    opt_state = bundle.optimizer.init(params)
+    for k, plan in train.items():
+        out[k, "grads"], calls[k, "grads"] = _calls(
+            mesh, lambda plan=plan: plan.grads(params, batch))
+        out[k, "step"], calls[k, "step"] = _calls(
+            mesh, lambda plan=plan: plan.fn(params, opt_state, batch))
+        ms[k, "step"] = call_ms(lambda plan=plan: plan.fn(
+            params, opt_state, batch), reps=2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    label = f"{name} (context-parallel), bf16 on {card}"
+    errs = [compare(f"lm_mesh {label}: prefill logits, mesh vs mesh-free",
+                    out["mesh", "prefill"][0], out["mesh-free", "prefill"][0],
+                    LM_MESH_TOL)]
+    for key in out["mesh", "prefill"][1]:
+        errs.append(compare(f"lm_mesh {label}: prefill cache {key!r}",
+                            out["mesh", "prefill"][1][key],
+                            out["mesh-free", "prefill"][1][key], LM_MESH_TOL))
+    errs.append(compare(f"lm_mesh {label}: train step loss (seq_shard)",
+                        out["mesh", "grads"][0], out["mesh-free", "grads"][0],
+                        LM_MESH_TOL))
+    check_tensors(f"lm_mesh {label}: every gradient, mesh vs mesh-free",
+                  tree.leaves(out["mesh", "grads"][1]),
+                  tree.leaves(out["mesh-free", "grads"][1]), BF16_GRAD_REL_L2)
+    check_tensors(f"lm_mesh {label}: every param after the AdamW step, mesh "
+                  f"vs mesh-free", tree.leaves(out["mesh", "step"][0]),
+                  tree.leaves(out["mesh-free", "step"][0]), BF16_GRAD_REL_L2)
+    def max_abs(got, want) -> float:
+        return max(float((a.float() - w.float()).abs().max())
+                   for a, w in zip(tree.leaves(got), tree.leaves(want),
+                                   strict=True))
+
+    grad_err = max_abs(out["mesh", "grads"][1], out["mesh-free", "grads"][1])
+    upd_err = max_abs(out["mesh", "step"][0], out["mesh-free", "step"][0])
+    # the floor: the mesh-free gradients against a second run of
+    # themselves (the card's backward need not be deterministic)
+    floor = max_abs(train["mesh-free"].grads(params, batch)[1],
+                    out["mesh-free", "grads"][1])
+    print(f"[lm_mesh] {name} at full width, 2 of "
+          f"{configs.LM_ARCHS[name].n_layers} layers, on {card}: prefill "
+          f"(B, T) = ({b}, {LM_SEQ}) mesh / mesh-free "
+          f"{ms['mesh', 'prefill']:.1f} / {ms['mesh-free', 'prefill']:.1f} ms, "
+          f"collectives per prefill {calls['mesh', 'prefill']}; train step "
+          f"({nmb} microbatches of {b // nmb} x {LM_SEQ}, seq_shard, AdamW) "
+          f"{ms['mesh', 'step']:.1f} / {ms['mesh-free', 'step']:.1f} ms, "
+          f"collectives per step {calls['mesh', 'step']}; gradients max abs "
+          f"err {grad_err:.3e} (mesh-free against a second mesh-free run: "
+          f"{floor:.3e}), updated params max abs err {upd_err:.3e}; peak "
+          f"device memory {peak:.2f} GB")
+    del params, out, opt_state
+    return dict(ms={f"{k} {p}": v for (k, p), v in ms.items()},
+                calls={p: calls["mesh", p] for p in ("prefill", "step")},
+                peak_gb=peak, err=max(max(errs), grad_err, upd_err),
+                grad_floor=floor)
+
+
+def phase_lm_mesh(card: str) -> dict:
+    """The LM under a (1, 1) ("data", "model") mesh over NCCL at world size
+    1 (one card holds one rank), through the registry's plans at full width
+    and cut depth, each against the same plan without a mesh: qwen3-moe
+    (sharded EP prefill, 2D EP decode), deepseek-v3 (2D EP prefill in
+    chunks of 2048 tokens, 2D EP decode) and qwen2-0.5b (context-parallel
+    prefill and a train step with seq_shard); no launch of either
+    kernel."""
+    import torch.distributed as dist
+    reset_counts()
+    t0 = time.perf_counter()
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dmesh.init("cuda", rank=0, world_size=1,
+               store=dist.FileStore(os.path.join(pg_dir, "store"), 1))
+    out: dict = {"archs": {}}
+    try:
+        mesh = dmesh.make_mesh((1, 1), ("data", "model"), "cuda")
+        print(f"[lm_mesh] process group: {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}; mesh {mesh.shape} on {mesh.device}")
+        for name, cut, b in LM_MESH_RUNS:
+            out["archs"][name] = lm_mesh_serve(mesh, name, cut, b, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["archs"][LM_MESH_TRAIN[0]] = lm_mesh_train(mesh, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[lm_mesh] launches of the port's kernels over the phase: "
+          f"{launches}; the phase took {time.perf_counter() - t0:.1f} s")
+    if any(launches.values()):
+        raise AssertionError("the LM's mesh path launched a DLRM kernel")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2321,10 +2585,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_out = phase_lm(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh = phase_lm_mesh(card)
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
-               "recsys": recsys["launches"], "lm": lm_out["launches"]}
+               "recsys": recsys["launches"], "lm": lm_out["launches"],
+               "lm_mesh": lm_mesh["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]
@@ -2382,6 +2650,11 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in att["ms"].items())
           + f"; bound {att['bound_ms']:.3f} / {att['bound_fwd_bwd_ms']:.3f}"
           f" ms")
+    for name, r in lm_mesh["archs"].items():
+        print(f"[lm_mesh] {name} on {card}: mesh / mesh-free "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in r["ms"].items())
+              + f"; collectives {r['calls']}; peak {r['peak_gb']:.2f} GB; "
+              f"max abs err {r['err']:.3e}")
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,33 +1,43 @@
-"""Model shapes: the DLRM config, the paper's RMC classes, the registry
-archs the serving path takes, the recsys sharding rules, and the shapes of
-the other recsys models (DIN, BERT4Rec, GraphSAGE).
+"""Model shapes and the arch registry (port of ``repro.configs``, and the
+shapes the reference keeps beside its models).
 
-Copied from the reference: ``DLRMConfig``/``make_rmc``/RMC1-3
-(``repro.models.dlrm``), ``small_dlrm`` (``repro.launch.train``), the
-dlrm-mlperf and dlrm-rm2 shapes and the sharding rules
-(``repro.configs``), the recsys cell shapes (``repro.configs.
+The LM half of the registry is its own modules: ``base`` (``ArchBundle``,
+``StepDef``, ``register``/``get_arch``/``list_archs``), ``lm_common`` (the
+sharding rules, the train/prefill/decode plans, ``LM_SHAPES``) and one
+module per LM arch (``qwen3_1_7b``, ``qwen2_0_5b``, ``nemotron_4_15b``,
+``qwen3_moe_30b_a3b``, ``deepseek_v3_671b``), each with its ``CONFIG``
+(and ``MOE``/``MLA``) and registered bundle; this module names their
+configs (``QWEN3_1_7B`` and the rest, ``LM_ARCHS``) and parameter counts.
+
+This module holds the rest, copied from the reference as constants (their
+bundles are not ported yet, ROADMAP A14): ``DLRMConfig``/``make_rmc``/
+RMC1-3 (``repro.models.dlrm``), ``small_dlrm`` and ``lm-100m``
+(``repro.launch.train``), the dlrm-mlperf and dlrm-rm2 shapes and sharding
+rules (``repro.configs``), the recsys cell shapes (``repro.configs.
 recsys_common.RECSYS_SHAPES``) and the DIN, BERT4Rec and GraphSAGE configs
-of ``repro.configs.{din_arch,bert4rec_arch,graphsage_reddit}`` (constants
-only, without the registry's bundles), and the five LM archs'
-``CONFIG``/``MOE``/``MLA`` of ``repro.configs.{qwen3_1_7b,qwen2_0_5b,
-nemotron_4_15b,qwen3_moe_30b_a3b,deepseek_v3_671b}`` with their parameter
-counts, ``lm-100m`` (``repro.launch.train``) and ``LM_SHAPES``
-(``repro.configs.lm_common``). ``arch_shape`` is the
-arch resolution of ``repro.serving.deployment``; ``arch_model_config`` goes
-through the port's own ``DeploymentConfig``.
+of ``repro.configs.{din_arch,bert4rec_arch,graphsage_reddit}``.
+``arch_shape`` is the arch resolution of ``repro.serving.deployment``;
+``arch_model_config`` goes through the port's own ``DeploymentConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs import (deepseek_v3_671b, nemotron_4_15b,
+                                 qwen2_0_5b, qwen3_1_7b, qwen3_moe_30b_a3b)
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    LONG_500K_SKIP, ArchBundle, StepDef, get_arch, list_archs, lm_shapes,
+    register)
+from repro_torch.configs.lm_common import (  # noqa: F401  (re-exported)
+    LM_SHAPES, CellPlan, lm_active_params, lm_attn_params)
 from repro_torch.distributed.shardings import P
 from repro_torch.models.bert4rec import Bert4RecConfig
 from repro_torch.models.din import DINConfig
 from repro_torch.models.graphsage import SAGEConfig
 from repro_torch.models.lm import LMConfig
-from repro_torch.models.mla import MLAConfig
-from repro_torch.models.moe import MoEConfig
+from repro_torch.models.mla import MLAConfig  # noqa: F401  (re-exported)
+from repro_torch.models.moe import MoEConfig  # noqa: F401  (re-exported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,55 +175,15 @@ SAGE_SHAPES = {
 
 
 # --------------------------------------------------------------- LM archs --
-# qwen3-1.7b [hf:Qwen/Qwen3-8B family; dense] — 28L d2048 16H (GQA kv=8)
-# d_ff 6144, vocab 151936, qk-norm, tied embeddings.
-QWEN3_1_7B = LMConfig(
-    name="qwen3-1.7b", n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8,
-    d_head=128, d_ff=6144, vocab=151936, act="swiglu", qk_norm=True,
-    rope_theta=1_000_000.0, tie_embeddings=True)
-
-# qwen2-0.5b [arXiv:2407.10671; dense] — 24L d896 14H (GQA kv=2)
-# d_ff 4864, vocab 151936, QKV bias, tied embeddings.
-QWEN2_0_5B = LMConfig(
-    name="qwen2-0.5b", n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
-    d_head=64, d_ff=4864, vocab=151936, act="swiglu", qkv_bias=True,
-    rope_theta=1_000_000.0, tie_embeddings=True,
-    context_parallel=True)
-
-# nemotron-4-15b [arXiv:2402.16819; dense] — 32L d6144 48H (GQA kv=8)
-# d_ff 24576, vocab 256000, squared-ReLU (non-gated) FFN, untied head.
-NEMOTRON_4_15B = LMConfig(
-    name="nemotron-4-15b", n_layers=32, d_model=6144, n_heads=48,
-    n_kv_heads=8, d_head=128, d_ff=24576, vocab=256000, act="squared_relu",
-    rope_theta=10_000.0, tie_embeddings=False)
-
-# qwen3-moe-30b-a3b [hf:Qwen/Qwen3-30B-A3B; moe] — 48L d2048 32H (GQA kv=4,
-# d_head 128), 128 experts top-8 (d_expert 768), vocab 151936, qk-norm.
-QWEN3_MOE_30B_A3B_MOE = MoEConfig(d_model=2048, d_expert=768, n_experts=128,
-                                  top_k=8, capacity_factor=1.5,
-                                  norm_topk=True)
-QWEN3_MOE_30B_A3B = LMConfig(
-    name="qwen3-moe-30b-a3b", n_layers=48, d_model=2048, n_heads=32,
-    n_kv_heads=4, d_head=128, d_ff=768, vocab=151936, act="swiglu",
-    qk_norm=True, rope_theta=1_000_000.0, moe=QWEN3_MOE_30B_A3B_MOE,
-    n_dense_layers=0, ep_axis="model")
-
-# deepseek-v3-671b [arXiv:2412.19437; moe] — 61L d7168 128H MLA,
-# 1 shared + 256 routed experts top-8 (d_expert 2048), first 3 layers dense
-# (d_ff 18432), vocab 129280, MTP head.
-DEEPSEEK_V3_671B_MLA = MLAConfig(d_model=7168, n_heads=128, q_lora_rank=1536,
-                                 kv_lora_rank=512, nope_head_dim=128,
-                                 rope_head_dim=64, v_head_dim=128,
-                                 rope_theta=10_000.0)
-DEEPSEEK_V3_671B_MOE = MoEConfig(d_model=7168, d_expert=2048, n_experts=256,
-                                 top_k=8, n_shared=1, capacity_factor=1.25,
-                                 norm_topk=True,
-                                 router_bias=True)   # aux-loss-free bias
-DEEPSEEK_V3_671B = LMConfig(
-    name="deepseek-v3-671b", n_layers=61, d_model=7168, n_heads=128,
-    n_kv_heads=128, d_ff=18432, vocab=129280, act="swiglu",
-    rope_theta=10_000.0, moe=DEEPSEEK_V3_671B_MOE, n_dense_layers=3,
-    mla=DEEPSEEK_V3_671B_MLA, mtp=True, ep_axis="model")
+# each arch's config is its module's (``repro_torch.configs.<arch>``)
+QWEN3_1_7B = qwen3_1_7b.CONFIG
+QWEN2_0_5B = qwen2_0_5b.CONFIG
+NEMOTRON_4_15B = nemotron_4_15b.CONFIG
+QWEN3_MOE_30B_A3B_MOE = qwen3_moe_30b_a3b.MOE
+QWEN3_MOE_30B_A3B = qwen3_moe_30b_a3b.CONFIG
+DEEPSEEK_V3_671B_MLA = deepseek_v3_671b.MLA
+DEEPSEEK_V3_671B_MOE = deepseek_v3_671b.MOE
+DEEPSEEK_V3_671B = deepseek_v3_671b.CONFIG
 
 LM_ARCHS = {c.name: c for c in (QWEN3_1_7B, QWEN2_0_5B, NEMOTRON_4_15B,
                                 QWEN3_MOE_30B_A3B, DEEPSEEK_V3_671B)}
@@ -224,48 +194,11 @@ LM_100M = LMConfig(name="lm-100m", n_layers=8, d_model=512, n_heads=8,
                    tie_embeddings=True, remat=False, q_chunk=128,
                    kv_chunk=128)
 
-# the LM cells (repro.configs.lm_common.LM_SHAPES)
-LM_SHAPES = {
-    "train_4k": dict(seq=4096, batch=256),
-    "prefill_32k": dict(seq=32768, batch=32),
-    "decode_32k": dict(seq=32768, batch=128),
-}
-
-
-def lm_attn_params(c: LMConfig) -> int:
-    """Weights of one attention block (GQA or MLA), norms and biases
-    aside."""
-    if c.mla is None:
-        return (c.d_model * c.head_dim * (c.n_heads + 2 * c.n_kv_heads)
-                + c.n_heads * c.head_dim * c.d_model)
-    a = c.mla
-    return (c.d_model * a.q_lora_rank
-            + a.q_lora_rank * c.n_heads * a.qk_head_dim
-            + c.d_model * a.kv_lora_rank + c.d_model * a.rope_head_dim
-            + a.kv_lora_rank * c.n_heads * (a.nope_head_dim + a.v_head_dim)
-            + c.n_heads * a.v_head_dim * c.d_model)
-
 
 def lm_n_active(name: str) -> float:
-    """The parameter count each LM arch's config module reports (its
-    ``n_params()`` or ``n_active()``, the registry's ``n_active``), by the
-    module's own formula."""
-    c = LM_ARCHS[name]
-    if c.moe is None:
-        ffn = (3 if c.act == "swiglu" else 2) * c.d_model * c.d_ff
-        embed = (1 if c.tie_embeddings else 2) * c.vocab * c.d_model
-        return embed + c.n_layers * (lm_attn_params(c) + ffn)
-    m = c.moe
-    expert = 3 * c.d_model * m.d_expert
-    if c.mla is None:
-        per_layer = lm_attn_params(c) + m.top_k * expert \
-            + c.d_model * m.n_experts
-        return c.vocab * c.d_model + c.n_layers * per_layer
-    dense_l = lm_attn_params(c) + 3 * c.d_model * c.d_ff
-    moe_l = lm_attn_params(c) + (m.top_k + m.n_shared) * expert \
-        + c.d_model * m.n_experts
-    return (c.vocab * c.d_model * 2 + c.n_dense_layers * dense_l
-            + (c.n_layers - c.n_dense_layers) * moe_l)
+    """The parameter count LM arch ``name``'s config module reports (its
+    ``n_params()`` or ``n_active()``, the registry's ``n_active``)."""
+    return lm_active_params(LM_ARCHS[name])
 
 
 def arch_shape(name: str) -> DLRMConfig:

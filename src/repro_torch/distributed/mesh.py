@@ -24,6 +24,14 @@ output's cotangent by the size of the axes its spec leaves out
 (``out_boundary``) and sums an input's cotangent over them
 (``shardings.sync_grads``); gradients in the port follow the same rules.
 
+The LM's regions keep one more layout outside them (``models.lm``): every
+rank holds its batch rows in full over the other axes and computes there
+as its neighbours do. ``in_boundary`` is ``sync_grads``' rule inside the
+graph, for a tensor such a region reads (its cotangent summed over the
+axes that replicate it), and ``gather_blocks``/``own_block`` rejoin and
+leave that layout along a dim (an ``all_gather`` whose cotangent is the
+rank's own block, and its transpose).
+
 ``init`` starts the process group explicitly: NCCL for ``cuda`` (the
 default), gloo only when the caller asks for the CPU. Nothing falls back.
 """
@@ -300,6 +308,83 @@ def out_boundary(x: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
     replicated output's blocks over every rank counts it once."""
     n = mesh.axis_size(unmentioned(mesh, spec))
     return _OutBoundary.apply(x, n) if n > 1 else x
+
+
+class _InBoundary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+def in_boundary(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``x`` unchanged, its cotangent summed over ``axes``: the rule the
+    reference's ``shard_map(check_vma=False)`` (``repro/compat.py:43-53``)
+    applies to an input that is replicated over ``axes``
+    (``shardings.sync_grads``), taken inside the graph, so
+    that each rank's share of the region's work reaches the tensor the
+    rank holds outside it. No-op where ``axes`` hold one rank."""
+    axes = mesh.axes(axes)
+    return _InBoundary.apply(x, mesh, axes) if mesh.axis_size(axes) > 1 \
+        else x
+
+
+def _chunk(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"into the {n} ranks of {axes}")
+    return x.narrow(dim, i * (x.shape[dim] // n), x.shape[dim] // n)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather(x.movedim(dim, 0), mesh, axes).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_chunk(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _OwnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _chunk(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g.movedim(ctx.dim, 0), ctx.mesh, ctx.axes)
+                .movedim(0, ctx.dim), None, None, None)
+
+
+def gather_blocks(x: torch.Tensor, mesh: Mesh, axes, dim: int
+                  ) -> torch.Tensor:
+    """Every rank's block ``x`` along ``axes``, joined along ``dim`` in
+    position order (``all_gather(tiled=True)``), into a tensor that every
+    rank along ``axes`` then uses alike: its cotangent, the same on each of
+    them, is cut back to the rank's own block, where ``all_gather``'s
+    transpose (``psum_scatter``) would add the ``n`` copies. The
+    reference's counterpart is the assembly of a ``shard_map`` output
+    sharded along ``dim`` (``repro/models/lm.py:182-183``'s out_spec)."""
+    return _GatherBlocks.apply(x, mesh, mesh.axes(axes), dim)
+
+
+def own_block(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (the same on every rank along ``axes``)
+    along ``dim``, by its position along ``axes``: ``gather_blocks``'
+    transpose, whose cotangent is every rank's block joined (the cut of a
+    ``shard_map`` input sharded along ``dim``, ``repro/models/lm.py:
+    171``'s qspec, or ``repro/models/lm.py:281-285``'s sharding
+    constraint)."""
+    return _OwnBlock.apply(x, mesh, mesh.axes(axes), dim)
 
 
 def shard_map(f, *, mesh: Mesh, in_specs, out_specs: PartitionSpec):

@@ -12,6 +12,23 @@ import math
 import torch
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device, where they
+    have shapes and no values (``torch.Generator`` takes no meta
+    device)."""
+
+    device = torch.device("meta")
+
+
+def make_generator(seed: int, device: torch.device) -> torch.Generator:
+    """A generator seeded with ``seed`` that the init helpers draw from on
+    ``device`` (``meta`` too: shapes only, nothing allocated)."""
+    gen = (_MetaGenerator() if device.type == "meta"
+           else torch.Generator(device=device))
+    gen.manual_seed(seed)
+    return gen
+
+
 def uniform_init(gen: torch.Generator, shape, scale,
                  dtype=torch.float32) -> torch.Tensor:
     u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)

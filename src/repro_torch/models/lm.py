@@ -1,5 +1,5 @@
 """Decoder-only LM: GQA or MLA attention, dense or MoE FFN, stacked layers,
-on torch tensors. Port of ``repro.models.lm``, single device.
+on torch tensors. Port of ``repro.models.lm``.
 
 One config covers the five LM architectures:
 
@@ -17,12 +17,36 @@ same leaves. ``lax.scan`` over the stacked layers is a loop over that dim;
 non-reentrant), and ``remat_group`` checkpoints groups of layers with each
 layer inside checkpointed again.
 
-Entry points: ``init``, ``train_loss``, ``prefill``, ``decode_step``.
-Each takes the reference's ``mesh`` argument and raises when it is given:
-the mesh branches (context-parallel attention, sequence sharding, the
-expert-parallel MoE) are not ported yet (ROADMAP A13b). With ``mesh=None``
-the reference runs this same local path (``ep_axis`` and the other mesh
-fields of ``LMConfig`` are accepted and have no effect there).
+Entry points: ``init``, ``train_loss``, ``prefill``, ``decode_step``,
+each with the reference's ``mesh`` argument. ``mesh=None`` is the local
+path (the mesh fields of ``LMConfig`` have no effect there, as in the
+reference). Under a ``distributed.mesh.Mesh`` each ``torch.distributed``
+rank runs the reference's ``shard_map`` regions on its blocks:
+
+- the MoE layers' expert parallelism where ``ep_axis`` is set
+  (``moe_ffn_sharded``, or the 2D serving layout ``moe_ffn_2d`` with
+  ``ep_2d`` and ``ep_token_chunk``);
+- context-parallel attention where ``context_parallel`` is set and T
+  divides the ``model`` axis (the rank's T block of queries against all
+  keys);
+- sequence sharding of the residual stream between layers with
+  ``seq_shard`` (off with a cache, as in the reference).
+
+The reference leaves everything outside those regions to GSPMD. The port
+fixes one layout there: each rank holds its rows of the batch
+(``cfg.batch_axes``; tokens, caches, hidden states and logits), the same
+on every rank of the other axes, and the params whole; the dense parts run
+on those rows with the whole params, alike on each rank of ``model``.
+Megatron tensor parallelism of the dense parts is not ported (ROADMAP
+A14). A region cuts its blocks of params and activations by the
+reference's in_specs and rejoins the layout at its out_spec. Its
+boundaries carry the gradients: an input's cotangent is summed over the
+axes that replicate it (``distributed.mesh.in_boundary``), an output's is
+divided by them (``out_boundary``), and the context-parallel gather cuts
+its cotangent back to the rank's block (``gather_blocks``). So after a
+backward each rank holds the gradient of its own rows' share of the loss,
+the same on every rank of ``model``, and a sum over the batch axes (the
+data-parallel all-reduce) gives the reference's ``jax.grad``.
 
 Token ids out of range are clamped (``embedding.layout.lookup``, the
 port's one contract), where the reference's ``jnp.take`` fills.
@@ -39,13 +63,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import (Mesh, gather_blocks, in_boundary,
+                                          out_boundary, own_block, psum)
+from repro_torch.distributed.shardings import P, NamedSharding
 from repro_torch.embedding.layout import lookup
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (decode_attention, flash_attention,
                                           write_slot)
-from repro_torch.models.common import (apply_rope, normal_init, rms_init,
-                                       rms_norm, rope_angles, squared_relu)
+from repro_torch.models.common import (apply_rope, make_generator,
+                                       normal_init, rms_init, rms_norm,
+                                       rope_angles, squared_relu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +102,9 @@ class LMConfig:
     remat: bool = True
     q_chunk: int = 512
     kv_chunk: int = 1024
-    # the reference's mesh fields (expert parallelism, the 2D serving
-    # layout, sequence sharding, context-parallel attention, the batch
-    # axes): accepted so that its configs copy verbatim; the local path
-    # ignores them, as the reference's does with mesh=None
+    # the mesh fields (expert parallelism, the 2D serving layout,
+    # sequence sharding, context-parallel attention, the batch axes); the
+    # local path ignores them, as the reference's does with mesh=None
     ep_axis: str | None = None
     ep_2d: bool = False
     ep_token_chunk: int | None = None
@@ -94,12 +121,18 @@ class LMConfig:
         return self.d_head or self.d_model // self.n_heads
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the LM's mesh branches (context-parallel attention, sequence "
-            "sharding, expert-parallel MoE) are not ported yet (ROADMAP "
-            "A13b); pass mesh=None for the single-device path")
+def _check_mesh(mesh, cfg: LMConfig) -> None:
+    """A mesh is None or a ``Mesh`` whose axes are ``cfg.batch_axes`` and
+    ``model``, the layout's two kinds."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a repro_torch.distributed.mesh.Mesh "
+                        f"or None, not {type(mesh).__name__}")
+    if sorted(mesh.axis_names) != sorted((*cfg.batch_axes, "model")):
+        raise ValueError(f"the LM's layout needs a mesh of the batch axes "
+                         f"{cfg.batch_axes} and 'model'; this one has "
+                         f"{mesh.axis_names}")
 
 
 # ---------------------------------------------------------------- params --
@@ -167,8 +200,9 @@ def init(seed: int, cfg: LMConfig, dtype=torch.float32,
          device: str | torch.device = "cuda") -> dict:
     """Random parameters with the reference's distributions, drawn on
     ``device`` from a generator seeded with ``seed`` (not JAX's draws). The
-    MoE routers are float32 whatever ``dtype`` is."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    MoE routers are float32 whatever ``dtype`` is. On ``meta`` it builds
+    the shapes only, allocating nothing (a plan's full-size model)."""
+    gen = make_generator(seed, resolve_device(device))
     n_dense = cfg.n_dense_layers if cfg.moe is not None else cfg.n_layers
     n_moe = cfg.n_layers - n_dense
     params: dict[str, Any] = {
@@ -220,12 +254,29 @@ def _qkv(p, x, cfg: LMConfig):
     return q, k, v
 
 
-def _gqa_attention(p, x, cfg: LMConfig, positions):
+def _cp_attention(q, k, v, cfg: LMConfig, mesh):
+    """Context-parallel attention (``repro/models/lm.py:169-184``): this
+    rank's T block of queries over ``model`` against every key, at its
+    global offset; the blocks rejoin over ``model`` on T."""
+    t_loc = q.shape[1] // mesh.axis_size("model")
+    out = flash_attention(
+        own_block(q, mesh, "model", 1), in_boundary(k, mesh, "model"),
+        in_boundary(v, mesh, "model"), causal=True,
+        q_chunk=min(cfg.q_chunk, t_loc), kv_chunk=cfg.kv_chunk,
+        q_start=mesh.axis_index("model") * t_loc)
+    return gather_blocks(out, mesh, "model", 1)
+
+
+def _gqa_attention(p, x, cfg: LMConfig, positions, mesh=None):
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
-    out = flash_attention(q, k, v, causal=True,
-                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cfg.context_parallel and mesh is not None \
+            and t % mesh.shape["model"] == 0:
+        out = _cp_attention(q, k, v, cfg, mesh)
+    else:
+        out = flash_attention(q, k, v, causal=True,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return out.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"], (k, v)
 
 
@@ -235,38 +286,101 @@ def _dense_ffn(p, x, cfg: LMConfig):
     return squared_relu(x @ p["w_in"]) @ p["w_out"]
 
 
-def _ffn(p, h, cfg: LMConfig):
+def _moe_specs(cfg: LMConfig) -> dict:
+    """The in_specs of one MoE layer's params under EP
+    (``repro/models/lm.py:217-227``)."""
+    ep = cfg.ep_axis
+    specs = {"router": P(), "w_gate": P(ep), "w_up": P(ep), "w_down": P(ep)}
+    if cfg.moe.n_shared:
+        specs["shared"] = {"w_gate": {"w": P(None, ep)},
+                           "w_up": {"w": P(None, ep)},
+                           "w_down": {"w": P(ep, None)}}
+    if cfg.moe.router_bias:
+        specs["router_b"] = P()
+    return specs
+
+
+def _moe_specs_2d(cfg: LMConfig) -> dict:
+    """The in_specs of the serving layout, ``moe_ffn_2d``'s
+    (``repro/models/lm.py:230-243``)."""
+    ep = cfg.ep_axis
+    specs = {"router": P(),
+             "w_gate": P(ep, None, "data"),
+             "w_up": P(ep, None, "data"),
+             "w_down": P(ep, "data", None)}
+    if cfg.moe.n_shared:
+        specs["shared"] = {"w_gate": {"w": P(None, ("data", ep))},
+                           "w_up": {"w": P(None, ("data", ep))},
+                           "w_down": {"w": P(("data", ep), None)}}
+    if cfg.moe.router_bias:
+        specs["router_b"] = P()
+    return specs
+
+
+def _moe_block(p, x, cfg: LMConfig, mesh):
+    """The MoE FFN (``repro/models/lm.py:247-264``): local without a mesh or
+    ``ep_axis``, else the rank's blocks of ``p`` by the specs through
+    ``moe_ffn_2d`` (``ep_2d``) or ``moe_ffn_sharded`` on its rows ``x``.
+    Each cut's cotangent is summed over ``model``, whose ranks share the
+    work, and the output's divided by it, since all of them use it."""
+    if cfg.ep_axis is None or mesh is None:
+        return moe_lib.moe_ffn(p, x, cfg.moe)
+    specs = _moe_specs_2d(cfg) if cfg.ep_2d else _moe_specs(cfg)
+    blocks = tree.tree_map(
+        lambda a, s: NamedSharding(mesh, s).shard(
+            in_boundary(a, mesh, "model")), p, specs)
+    x = in_boundary(x, mesh, "model")
+    if cfg.ep_2d:
+        y = moe_lib.moe_ffn_2d(blocks, x, cfg.moe, model_axis=cfg.ep_axis,
+                               data_axis="data", batch_axes=cfg.batch_axes,
+                               token_chunk=cfg.ep_token_chunk, mesh=mesh)
+    else:
+        y = moe_lib.moe_ffn_sharded(blocks, x, cfg.moe,
+                                    axis_name=cfg.ep_axis, mesh=mesh)
+    return out_boundary(y, mesh, P(cfg.batch_axes, None, None))
+
+
+def _ffn(p, h, cfg: LMConfig, mesh):
     if "moe" in p:
-        return moe_lib.moe_ffn(p["moe"], h, cfg.moe)
+        return _moe_block(p["moe"], h, cfg, mesh)
     return _dense_ffn(p["ffn"], h, cfg)
 
 
-def _layer_fwd(p, x, cfg: LMConfig, positions):
-    """One block; returns (x, its KV for the cache)."""
+def _layer_fwd(p, x, cfg: LMConfig, positions, mesh=None):
+    """One block; returns (x, its KV for the cache). MLA takes no mesh,
+    as in the reference."""
     if cfg.mla is not None:
         attn, kv = mla_lib.mla_attention(
             p["attn"], rms_norm(x, p["ln1"]["gamma"]), cfg.mla, positions)
     else:
         attn, kv = _gqa_attention(p["attn"], rms_norm(x, p["ln1"]["gamma"]),
-                                  cfg, positions)
+                                  cfg, positions, mesh)
     x = x + attn
-    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg), kv
+    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh), kv
 
 
 def _layer(stacked, i: int):
     return tree.tree_map(lambda a: a[i], stacked)
 
 
-def _scan_layers(stacked, x, cfg: LMConfig, positions,
+def _scan_layers(stacked, x, cfg: LMConfig, positions, mesh=None,
                  with_cache: bool = False):
     """The layers of ``stacked`` in order over x; returns (x, [KV per
-    layer]) with ``with_cache``, else (x, None)."""
+    layer]) with ``with_cache``, else (x, None).
+
+    With ``seq_shard`` under a mesh (``repro/models/lm.py:281-314``; not
+    with a cache) each rank keeps its (B, T / n_model, D) block of the
+    residual stream between layers, so that a checkpoint holds that block
+    only, and gathers it over ``model`` at each layer's input."""
     n_layers = tree.leaves(stacked)[0].shape[0]
     remat = torch.is_grad_enabled() and not with_cache
+    sp = cfg.seq_shard and mesh is not None and not with_cache
 
     def body(carry, i):
-        y, _ = _layer_fwd(_layer(stacked, i), carry, cfg, positions)
-        return y
+        if sp:
+            carry = gather_blocks(carry, mesh, "model", 1)
+        y, _ = _layer_fwd(_layer(stacked, i), carry, cfg, positions, mesh)
+        return own_block(y, mesh, "model", 1) if sp else y
 
     def step(carry, i):
         if remat and cfg.remat:
@@ -276,9 +390,11 @@ def _scan_layers(stacked, x, cfg: LMConfig, positions,
     if with_cache:
         kvs = []
         for i in range(n_layers):
-            x, kv = _layer_fwd(_layer(stacked, i), x, cfg, positions)
+            x, kv = _layer_fwd(_layer(stacked, i), x, cfg, positions, mesh)
             kvs.append(kv)
         return x, kvs
+    if sp:
+        x = own_block(x, mesh, "model", 1)
     g = cfg.remat_group
     if g and 1 < g < n_layers and n_layers % g == 0:
         def group(carry, lo):
@@ -289,10 +405,10 @@ def _scan_layers(stacked, x, cfg: LMConfig, positions,
         for lo in range(0, n_layers, g):
             x = checkpoint(group, x, lo, use_reentrant=False) if remat \
                 else group(x, lo)
-        return x, None
-    for i in range(n_layers):
-        x = step(x, i)
-    return x, None
+    else:
+        for i in range(n_layers):
+            x = step(x, i)
+    return (gather_blocks(x, mesh, "model", 1) if sp else x), None
 
 
 def _positions(b: int, t: int, device) -> torch.Tensor:
@@ -301,8 +417,9 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
 
 def backbone(params, tokens, cfg: LMConfig, mesh=None, positions=None,
              with_cache: bool = False):
-    """tokens (B,T) -> final hidden (B,T,D) [+ the KV of every layer]."""
-    _no_mesh(mesh)
+    """tokens (B,T) -> final hidden (B,T,D) [+ the KV of every layer].
+    Under a mesh, ``tokens`` are this rank's rows (module docstring)."""
+    _check_mesh(mesh, cfg)
     b, t = tokens.shape
     if positions is None:
         positions = _positions(b, t, tokens.device)
@@ -310,7 +427,8 @@ def backbone(params, tokens, cfg: LMConfig, mesh=None, positions=None,
     caches = []
     for name in ("dense_layers", "moe_layers"):
         if name in params:
-            x, kv = _scan_layers(params[name], x, cfg, positions, with_cache)
+            x, kv = _scan_layers(params[name], x, cfg, positions, mesh,
+                                 with_cache)
             caches.extend(kv or [])
     x = rms_norm(x, params["final_norm"]["gamma"])
     return (x, caches) if with_cache else x
@@ -338,6 +456,13 @@ def chunked_ce(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
     checkpointed, so the backward recomputes it instead of keeping (B, T,
     V) logits.
     """
+    acc, total = _ce_terms(params, hidden, targets, cfg, t_chunk, weights)
+    return acc / total.clamp_min(1.0)
+
+
+def _ce_terms(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
+              weights=None):
+    """``chunked_ce``'s weighted NLL sum and its weights' sum."""
     b, t, _ = hidden.shape
     if weights is None:
         weights = torch.ones((b, t), dtype=torch.float32,
@@ -353,14 +478,30 @@ def chunked_ce(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
                 targets[:, lo:lo + t_chunk], weights[:, lo:lo + t_chunk], cfg)
         acc = acc + (checkpoint(_ce_sum, *args, use_reentrant=False)
                      if torch.is_grad_enabled() else _ce_sum(*args))
-    return acc / weights.sum().clamp_min(1.0)
+    return acc, weights.sum()
+
+
+def _mean_nll(params, hidden, targets, cfg: LMConfig, mesh):
+    """``chunked_ce`` over the whole batch: under a mesh, each rank's rows
+    over every rank's weight, summed over the batch axes. The sum's
+    cotangent is divided over the batch axes (``out_boundary``), so that
+    each rank's backward is its own rows' share of the mean."""
+    if mesh is None:
+        return chunked_ce(params, hidden, targets, cfg)
+    acc, total = _ce_terms(params, hidden, targets, cfg)
+    share = acc / psum(total, mesh, cfg.batch_axes).clamp_min(1.0)
+    return out_boundary(psum(share, mesh, cfg.batch_axes), mesh, P("model"))
 
 
 def train_loss(params, batch, cfg: LMConfig, mesh=None):
-    """batch: {tokens (B,T), targets (B,T)}; mean next-token CE (+ MTP)."""
+    """batch: {tokens (B,T), targets (B,T)}; mean next-token CE (+ MTP).
+
+    Under a mesh ``batch`` holds this rank's rows; the loss is the whole
+    batch's mean on every rank, and its gradient the rank's share (module
+    docstring)."""
     tokens, targets = batch["tokens"], batch["targets"]
     hidden = backbone(params, tokens, cfg, mesh)
-    loss = chunked_ce(params, hidden, targets, cfg)
+    loss = _mean_nll(params, hidden, targets, cfg, mesh)
     if cfg.mtp and "mtp" in params:
         # predict t+2: combine h_t with emb(t+1), one extra block.
         emb_next = lookup(params["embed"], tokens)
@@ -369,11 +510,11 @@ def train_loss(params, batch, cfg: LMConfig, mesh=None):
         h = rms_norm(h, params["mtp"]["norm"]["gamma"])
         b, tm1, _ = h.shape
         h, _ = _layer_fwd(params["mtp"]["layer"], h, cfg,
-                          _positions(b, tm1, h.device))
+                          _positions(b, tm1, h.device), mesh)
         # position i of h fuses hidden_i with emb(token_{i+1}) and predicts
         # token_{i+2} = targets[i+1], for i in [0, T-2].
-        loss = loss + cfg.mtp_weight * chunked_ce(
-            params, h, targets[:, 1:], cfg)
+        loss = loss + cfg.mtp_weight * _mean_nll(
+            params, h, targets[:, 1:], cfg, mesh)
     return loss
 
 
@@ -394,7 +535,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _decode_layer(p, x, cache_slice, length, cfg: LMConfig):
+def _decode_layer(p, x, cache_slice, length, cfg: LMConfig, mesh=None):
     """x (B,1,D) one layer; writes the token's KV into ``cache_slice`` (one
     layer's cache) in place and returns x."""
     b = x.shape[0]
@@ -414,7 +555,7 @@ def _decode_layer(p, x, cache_slice, length, cfg: LMConfig):
         attn = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) \
             @ p["attn"]["wo"]
     x = x + attn
-    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg)
+    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh)
 
 
 def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
@@ -427,8 +568,12 @@ def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
     last slot, with RoPE still at position ``length``, and the step
     returns finite logits: the reference's ``dynamic_update_slice`` clamps
     its index the same way, so the two agree there too.
+
+    Under a mesh ``tokens`` and the cache hold this rank's batch rows (the
+    cache's sequence axis is whole; the plans' cache specs split it over
+    ``model`` for GSPMD, which the port leaves out), and so do the logits.
     """
-    _no_mesh(mesh)
+    _check_mesh(mesh, cfg)
     x = lookup(params["embed"], tokens[:, None])
     offset = 0
     for name in ("dense_layers", "moe_layers"):
@@ -438,7 +583,7 @@ def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
         for i in range(tree.leaves(stacked)[0].shape[0]):
             layer_cache = {k: c[offset + i] for k, c in cache.items()}
             x = _decode_layer(_layer(stacked, i), x, layer_cache, length,
-                              cfg)
+                              cfg, mesh)
         offset += tree.leaves(stacked)[0].shape[0]
     x = rms_norm(x, params["final_norm"]["gamma"])
     return logits_fn(params, x[:, 0], cfg), cache
@@ -446,7 +591,8 @@ def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
 
 def prefill(params, tokens, cfg: LMConfig, mesh=None):
     """tokens (B,T) -> (last-position logits (B,V), stacked caches of
-    exactly T slots in the compute dtype)."""
+    exactly T slots in the compute dtype); under a mesh, of this rank's
+    rows."""
     hidden, caches = backbone(params, tokens, cfg, mesh, with_cache=True)
     names = ("c", "kr") if cfg.mla is not None else ("k", "v")
     cache = {n: torch.stack([kv[i] for kv in caches])

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: top-k routing + GShard blocked dispatch, on torch
-tensors. Port of the single-device half of ``repro.models.moe``.
+tensors. Port of ``repro.models.moe``.
 
 Dispatch is sort-based: token-expert assignments are sorted by expert id
 (a stable sort, as ``jnp.argsort``), scattered into per-expert capacity
@@ -15,8 +15,15 @@ The scatter-adds (``.at[].add``) are ``index_put_(accumulate=True)``; on
 CUDA the combine adds a token's k expert outputs in no fixed order, so the
 card agrees with the CPU to a tolerance, not bit for bit.
 
-The mesh variants (``moe_ffn_sharded``, ``moe_ffn_2d``) are not ported yet
-(ROADMAP A13b).
+The mesh variants are the reference's ``shard_map`` bodies, run once per
+``torch.distributed`` rank on its blocks (``distributed.mesh``):
+``moe_ffn_sharded`` (replicated-activation expert parallelism, one psum
+over the expert axis) and ``moe_ffn_2d`` (the weight-stationary serving
+layout: the tokens gathered over the batch axes, one psum over ``(data,
+model)``). Each routes every token it sees, keeps the assignments of its
+own experts, and sizes their capacity by the tokens of its own call, so a
+mesh drops other assignments than one device does over the whole batch,
+exactly the reference's at each mesh coordinate.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import all_gather, psum
 from repro_torch.models.common import dense_init, normal_init
 
 
@@ -152,21 +160,97 @@ def _cap_per_expert(cfg: MoEConfig, tokens: int) -> int:
 
 
 def moe_ffn(params, x, cfg: MoEConfig):
-    """Single-shard (or fully replicated experts) MoE FFN. x (..., D)."""
+    """Single-shard (or fully replicated experts) MoE FFN. x (..., D): every
+    expert is local (shard 0 of one)."""
     shape = x.shape
     x2d = x.reshape(-1, cfg.d_model)
-    t = x2d.shape[0]
-    top_p, top_e = _route(params, x2d, cfg)
-
-    flat_e = top_e.reshape(-1)                       # (T*k,)
-    flat_t = torch.arange(t, device=x.device).repeat_interleave(cfg.top_k)
-    flat_p = top_p.reshape(-1)
-    y = _gshard_ffn(params, x2d, flat_t, flat_e, flat_p,
-                    torch.ones_like(flat_e, dtype=torch.bool), cfg.n_experts,
-                    _cap_per_expert(cfg, t), cfg.act)
+    y = _gshard_ffn(params, x2d, *_local_assignments(params, x2d, cfg, 0),
+                    cfg.n_experts, _cap_per_expert(cfg, x2d.shape[0]),
+                    cfg.act)
     if cfg.n_shared:
         y = y + _shared_ffn(params["shared"], x2d)
     return y.to(x.dtype).reshape(shape)
+
+
+def _local_assignments(params, x2d, cfg: MoEConfig, shard: int):
+    """Route every row of x2d (T, D) and keep the assignments of the
+    ``e_local`` experts this shard holds (global ids ``shard * e_local``
+    onward): ``_gshard_ffn``'s (tokens, local expert ids, probs, kept),
+    each (T*k,)."""
+    e_local = params["w_gate"].shape[0]
+    top_p, top_e = _route(params, x2d, cfg)
+    flat_e = top_e.reshape(-1)
+    flat_t = torch.arange(x2d.shape[0], device=x2d.device) \
+        .repeat_interleave(cfg.top_k)
+    return (flat_t, flat_e % e_local, top_p.reshape(-1),
+            (flat_e // e_local) == shard)
+
+
+def moe_ffn_sharded(params, x, cfg: MoEConfig, axis_name: str = "model", *,
+                    mesh):
+    """Replicated-activation EP (``repro/models/moe.py:160-188``): the body
+    of a ``shard_map`` over ``axis_name``, on this rank's blocks.
+
+    ``params['w_gate'|'w_up'|'w_down']`` hold the rank's (E_local, ...)
+    expert slice and the shared expert its slice of d_ff; the router is
+    whole. ``x`` (..., D) is the same on every rank along ``axis_name``.
+    Each rank runs its own experts on the assignments they own, at the
+    capacity of its own ``T`` tokens, and one psum over ``axis_name``
+    completes the combine (the shared expert's partial product too).
+    """
+    shape = x.shape
+    x2d = x.reshape(-1, cfg.d_model)
+    y = _gshard_ffn(params, x2d, *_local_assignments(
+        params, x2d, cfg, mesh.axis_index(axis_name)),
+        params["w_gate"].shape[0], _cap_per_expert(cfg, x2d.shape[0]),
+        cfg.act)
+    if cfg.n_shared:
+        y = y + _shared_ffn(params["shared"], x2d)
+    return psum(y, mesh, axis_name).to(x.dtype).reshape(shape)
+
+
+def moe_ffn_2d(params, x, cfg: MoEConfig, model_axis: str = "model",
+               data_axis: str = "data", batch_axes=("data",),
+               token_chunk: int | None = None, *, mesh):
+    """Weight-stationary 2D expert sharding for serving
+    (``repro/models/moe.py:191-234``): the body of a ``shard_map`` on this
+    rank's blocks, experts over ``model_axis`` and each expert's F over
+    ``data_axis`` (the shared expert's F over both).
+
+    The rank's (rows, D) block is gathered over ``batch_axes`` (batch
+    major), every rank routes all of it, runs its (E_local, D, F_local)
+    experts, and one psum over ``(data_axis, model_axis)`` completes both
+    the F partial sums and the combine; the rank keeps its own rows.
+    ``token_chunk`` runs the rows in chunks of that many (a loop, the
+    reference's scan) when there are more rows and they divide: each
+    chunk gathers ``token_chunk`` x the batch shards, and that is its
+    capacity's token count.
+    """
+    shape = x.shape
+    x2d = x.reshape(-1, cfg.d_model)
+    rows = x2d.shape[0]
+    args = (params, cfg, model_axis, data_axis, batch_axes, mesh)
+    if token_chunk and rows > token_chunk and rows % token_chunk == 0:
+        return torch.cat([_moe_2d_block(x2d[lo:lo + token_chunk], *args)
+                          for lo in range(0, rows, token_chunk)]
+                         ).reshape(shape)
+    return _moe_2d_block(x2d, *args).reshape(shape)
+
+
+def _moe_2d_block(x2d, params, cfg: MoEConfig, model_axis, data_axis,
+                  batch_axes, mesh):
+    """One chunk of ``moe_ffn_2d`` (``repro/models/moe.py:237-259``)."""
+    rows = x2d.shape[0]
+    x_full = all_gather(x2d, mesh, batch_axes)
+    y = _gshard_ffn(params, x_full, *_local_assignments(
+        params, x_full, cfg, mesh.axis_index(model_axis)),
+        params["w_gate"].shape[0], _cap_per_expert(cfg, x_full.shape[0]),
+        cfg.act)
+    if cfg.n_shared:
+        y = y + _shared_ffn(params["shared"], x_full)
+    y = psum(y, mesh, (data_axis, model_axis)).to(x2d.dtype)
+    lo = mesh.axis_index(batch_axes) * rows    # batch-major gather order
+    return y[lo:lo + rows]
 
 
 def load_balance_loss(params, x2d, cfg: MoEConfig):

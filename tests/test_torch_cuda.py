@@ -673,3 +673,70 @@ def test_flash_attention_on_card_vs_cpu(gen):
     torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=2e-5)
     for a, b in zip(outs[1][1:], outs[0][1:], strict=True):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-4)
+
+
+# -- the LM's mesh branches at world size 1 over NCCL -----------------------
+
+
+@pytest.mark.parametrize("ep_2d", [False, True])
+def test_lm_mesh_prefill_and_decode_vs_mesh_free(gen, nccl_mesh, ep_2d):
+    """The reduced qwen3-moe with expert parallelism (sharded, or the 2D
+    serving layout) under a (1, 1) NCCL mesh: prefill's logits and cache and
+    one decode step's logits equal the mesh-free calls', and the MoE's
+    collectives ran."""
+    from repro_torch.models import lm
+    from repro_torch.models.moe import MoEConfig
+    cfg = _lm_small(qk_norm=True, ep_axis="model", ep_2d=ep_2d,
+                    batch_axes=("data",),
+                    moe=MoEConfig(d_model=64, d_expert=32, n_experts=8,
+                                  top_k=2, capacity_factor=2.0))
+    params = _on_card(lm.init(0, cfg, device="cpu"))
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen,
+                         device="cuda")
+    grow = lambda c: {k: torch.nn.functional.pad(  # noqa: E731
+        v, [0, 0] * (v.ndim - 3) + [0, 1]) for k, v in c.items()}
+    nccl_mesh.calls.clear()
+    with torch.inference_mode():
+        got, cache = lm.prefill(params, toks[:, :64], cfg, nccl_mesh)
+        want, wcache = lm.prefill(params, toks[:, :64], cfg)
+        torch.testing.assert_close(got, want, **_recsys_tol())
+        for k in cache:
+            torch.testing.assert_close(cache[k], wcache[k], **_recsys_tol())
+        got, _ = lm.decode_step(params, grow(cache), toks[:, 64], 64, cfg,
+                                nccl_mesh)
+        want, _ = lm.decode_step(params, grow(wcache), toks[:, 64], 64, cfg)
+    torch.testing.assert_close(got, want, **_recsys_tol())
+    assert nccl_mesh.calls["all_reduce"] >= 2 * cfg.n_layers
+    if ep_2d:
+        assert nccl_mesh.calls["all_gather"] >= 2 * cfg.n_layers
+
+
+def test_lm_mesh_cp_train_step_vs_mesh_free(gen, nccl_mesh):
+    """The reduced qwen2 with context-parallel attention and sequence
+    sharding: one step of its train plan (forward, backward, AdamW) under a
+    (1, 1) NCCL mesh against the same plan without a mesh: the loss, every
+    gradient and every updated param."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.configs import lm_common
+    from repro_torch.models import lm
+    cfg = _lm_small(n_kv_heads=1, qkv_bias=True, tie_embeddings=True,
+                    context_parallel=True)
+    bundle = dataclasses.replace(configs.get_arch("qwen2-0.5b"), cfg=cfg)
+    params = _on_card(lm.init(0, cfg, device="cpu"))
+    toks = torch.randint(0, cfg.vocab, (2, 2, 65), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[..., :-1], "targets": toks[..., 1:]}
+    plans = [lm_common.build_train_plan(bundle, m, False, microbatch=2,
+                                        seq_shard=True)
+             for m in (nccl_mesh, None)]
+    (loss, grads), (wloss, wgrads) = [p.grads(params, batch) for p in plans]
+    torch.testing.assert_close(loss, wloss, **_recsys_tol())
+    for a, b in zip(tree.leaves(grads), tree.leaves(wgrads), strict=True):
+        torch.testing.assert_close(a, b, **_recsys_tol())
+    opt = bundle.optimizer
+    (new, _, _), (wnew, _, _) = [p.fn(params, opt.init(params), batch)
+                                 for p in plans]
+    for a, b in zip(tree.leaves(new), tree.leaves(wnew), strict=True):
+        torch.testing.assert_close(a, b, **_recsys_tol())

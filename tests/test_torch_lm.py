@@ -282,19 +282,56 @@ class TestLMFamily:
         for path, g in grads.items():
             torch.testing.assert_close(rgrads[path], g, rtol=0, atol=0)
 
-    def test_mesh_raises(self):
-        cfg = VARIANTS["qwen3-1.7b"]
+    def test_mesh_raises(self, tmp_path):
+        """A mesh that is not a ``Mesh`` raises; on a (1, 1) gloo mesh the
+        mesh branches run (sharded and 2D EP, context-parallel attention,
+        sequence sharding) and each of the four entry points, gradients
+        too, equals its mesh-free call."""
+        import torch.distributed as dist
+
+        from repro_torch.distributed import mesh as M
+        cfg = dataclasses.replace(
+            VARIANTS["qwen3-moe-30b-a3b"], ep_axis="model",
+            context_parallel=True, seq_shard=True, batch_axes=("data",))
         p = lm.init(0, cfg, device="cpu")
-        toks = torch.zeros((1, 8), dtype=torch.int32)
-        batch = {"tokens": toks, "targets": toks}
-        for call in (lambda: lm.backbone(p, toks, cfg, mesh="mesh"),
-                     lambda: lm.train_loss(p, batch, cfg, mesh="mesh"),
-                     lambda: lm.prefill(p, toks, cfg, mesh="mesh"),
-                     lambda: lm.decode_step(
-                         p, lm.init_cache(cfg, 1, 8, device="cpu"),
-                         toks[:, 0], 0, cfg, mesh="mesh")):
-            with pytest.raises(NotImplementedError, match="A13b"):
-                call()
+        toks, tgt = (torch.from_numpy(a) for a in _tokens(2, 16, cfg.vocab,
+                                                          3))
+        batch = {"tokens": toks, "targets": tgt}
+        with pytest.raises(TypeError, match="Mesh"):
+            lm.backbone(p, toks, cfg, mesh="mesh")
+        M.init("cpu", rank=0, world_size=1,
+               store=dist.FileStore(str(tmp_path / "store"), 1))
+        try:
+            mesh = M.make_mesh((1, 1), ("data", "model"), "cpu")
+            for ep_2d in (False, True):
+                c = dataclasses.replace(cfg, ep_2d=ep_2d)
+                calls = dict(mesh.calls)
+                with torch.no_grad():
+                    for got, want in (
+                            (lm.backbone(p, toks, c, mesh),
+                             lm.backbone(p, toks, c)),
+                            (lm.prefill(p, toks, c, mesh),
+                             lm.prefill(p, toks, c)),
+                            (lm.decode_step(
+                                p, _pad_cache(lm.prefill(p, toks, c)[1]),
+                                toks[:, 0], 16, c, mesh)[0],
+                             lm.decode_step(
+                                 p, _pad_cache(lm.prefill(p, toks, c)[1]),
+                                 toks[:, 0], 16, c)[0])):
+                        for a, b in zip(tree.leaves(got), tree.leaves(want),
+                                        strict=True):
+                            torch.testing.assert_close(a, b, rtol=0, atol=0)
+                loss, grads = _value_and_grads(
+                    lambda q, c=c: lm.train_loss(q, batch, c, mesh), p)
+                wloss, wgrads = _value_and_grads(
+                    lambda q, c=c: lm.train_loss(q, batch, c), p)
+                assert float(loss) == float(wloss)
+                for path, g in wgrads.items():
+                    torch.testing.assert_close(grads[path], g, rtol=0,
+                                               atol=0, msg=path)
+                assert dict(mesh.calls) != calls     # collectives ran
+        finally:
+            dist.destroy_process_group()
 
     def test_init_cache_matches_reference(self):
         for name in ("qwen3-1.7b", "deepseek-v3-671b"):
