@@ -59,7 +59,7 @@ Phases, each of which fails the run when it fails:
    adagrad and AdamW, float32 state) through the kernels; the logits and
    scores against the plain route at the bf16 tolerance, the Functions'
    gradients against plain autograd; each timed with CUDA events;
-10. recsys: DIN, BERT4Rec and GraphSAGE at the reference's configs, each
+10. recsys: DIN, BERT4Rec and GraphSAGE at the registry's configs, each
    run on the card and held against the same port function on the CPU
    with the same params (DIN forward at serve_p99, loss and gradients at
    4096, retrieval of 1 x 1M in chunks; BERT4Rec score at 512, cloze loss
@@ -89,7 +89,26 @@ Phases, each of which fails the run when it fails:
    qwen2-0.5b's context-parallel prefill at (8, 4096) and one step of its
    train plan (sequence sharding, AdamW): logits, caches, loss, every
    gradient and every updated param, the mesh and mesh-free times, the
-   collectives per call and the peak memory; no launch of either kernel.
+   collectives per call and the peak memory; no launch of either kernel;
+13. registry (after recsys): the registry's plans (``configs.get_arch``)
+   with mesh None on real tensors at their full shapes: dlrm-mlperf in bf16
+   (26 tables, 48.07 GB, and 0.75 GB of rank_of permutations made on the
+   card) through serve_p99 (512), serve_bulk (262,144) and retrieval_cand
+   (1 x 1M), dlrm-rm2 and rmc1-3 through serve_p99 and retrieval_cand,
+   each table's last id and the id of its last stored row in every batch;
+   one counted call of each through the kernels (one grouped SLS and one
+   fused interaction launch, retrieval one per-table SLS more) held against
+   the same plan built with plain=True, then timed; both kernels timed at
+   each arch's serve inputs (D 128 bf16, D 32, T 9, 11 and 33); one
+   train_batch step of dlrm-rm2 at 65,536 samples, its loss against the
+   plain route's on the same batch; DIN's and BERT4Rec's serve_p99 and
+   GraphSAGE's molecule and full_graph_sm steps, card against CPU; peak
+   memory per arch;
+14. dryrun (last): ``python -m repro_torch.launch.dryrun --arch all --mesh
+   both`` in a subprocess: every cell's plan run on rank 0's blocks of meta
+   tensors under a fake 256- or 512-rank group, its per-rank flops, bytes,
+   wire bytes, H100 roofline bound, peak and ``fits_hbm`` printed; any
+   failed cell fails the run.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -1500,7 +1519,7 @@ def _bert_batch(cfg, b: int, rng: np.random.Generator, n_mask: int = 0
 
 
 def phase_recsys(card: str) -> dict:
-    """DIN, BERT4Rec and GraphSAGE at the reference's configs: each run on
+    """DIN, BERT4Rec and GraphSAGE at the registry's configs: each run on
     the card and held against the same port function on the CPU with the
     same params; timed with CUDA events. None launches a kernel of the
     port."""
@@ -1583,7 +1602,7 @@ def phase_recsys(card: str) -> dict:
     out["din retrieval"] = dict(ms=ms, err=err, peak_gb=peak_gb)
     del pc, rbc, scores
 
-    # BERT4Rec at its own config (26,744 items, d 64, seq 200)
+    # BERT4Rec at the registry's config (26,752 items, d 64, seq 200)
     cfg = configs.BERT4REC
     params = bert4rec.init(0, cfg, device="cpu")
     both(f"bert4rec score, serve_p99 (batch {shapes['serve_p99']['batch']})",
@@ -1677,6 +1696,378 @@ def phase_recsys(card: str) -> dict:
     if any(launches.values()):
         raise AssertionError("the recsys models launched a DLRM kernel")
     return dict(launches=launches, results=out)
+
+
+# ------------------------------------------------------------- registry --
+# the registry phase: the registry's plans (configs.get_arch(name).steps
+# [cell].make_fn(bundle, None, False)) on real tensors on the card at the
+# plans' full shapes; the DLRM archs' cells through the kernels, each held
+# against the same plan built with plain=True
+REGISTRY_DLRM = (("dlrm-mlperf", ("serve_p99", "serve_bulk",
+                                  "retrieval_cand")),
+                 ("dlrm-rm2", ("serve_p99", "retrieval_cand")),
+                 ("rmc1", ("serve_p99", "retrieval_cand")),
+                 ("rmc2", ("serve_p99", "retrieval_cand")),
+                 ("rmc3", ("serve_p99", "retrieval_cand")))
+# dlrm-rm2's train_batch step (65,536 samples): the plain route's loss of
+# the same batch, taken in chunks (its gathered rows are 35 GB at once)
+REGISTRY_TRAIN = "dlrm-rm2"
+REGISTRY_PLAIN_CHUNK = 4096
+# the plain=True retrieval plan over the candidates in this many chunks
+# (each score depends on its own candidate alone): its interaction
+# materialises z = [bottom; bags], 13.8 GB in f32 for 1M dlrm-mlperf rows
+REGISTRY_RETRIEVAL_CHUNKS = 4
+# launches of one kernel-route call of a serve / retrieval plan
+SERVE_LAUNCHES = {"recflash_sls_grouped": 1, "dot_interaction_fused": 1,
+                  "recflash_sls": 0, "dot_interaction": 0}
+RETRIEVAL_LAUNCHES = {**SERVE_LAUNCHES, "recflash_sls": 1}
+
+
+def _registry_dlrm_batch(cfg, cell: str, rank_of: list,
+                         gen: torch.Generator) -> dict:
+    """A DLRM cell's batch on the card at its full shape (the registry's
+    make_batch): random ids, with each table's last id and the id of its
+    last stored row (the rank_of preimage of V-1, the row at the largest
+    offset) among them; for retrieval these two ids of the last table lead
+    the candidates."""
+    shp = configs.RECSYS_SHAPES[cell]
+    b, dev = shp["batch"], "cuda"
+    idx = torch.stack([torch.randint(0, v, (b, cfg.lookups), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                       for v in cfg.n_rows], dim=1)
+    last_row = [int((r == r.numel() - 1).nonzero()[0, 0]) for r in rank_of]
+    for t, v in enumerate(cfg.n_rows):
+        idx[0, t, 0] = v - 1
+        idx[min(1, b - 1), t, min(1, cfg.lookups - 1)] = last_row[t]
+    batch = {"dense": torch.randn(b, cfg.n_dense, generator=gen, device=dev),
+             "indices": idx, "rank_of": rank_of}
+    if cell == "train_batch":
+        batch["labels"] = (torch.rand(b, generator=gen, device=dev)
+                           < 0.3).float()
+    if cell == "retrieval_cand":
+        cand = torch.randint(0, cfg.n_rows[-1], (shp["n_candidates"],),
+                             generator=gen, device=dev, dtype=torch.int32)
+        cand[0], cand[1] = cfg.n_rows[-1] - 1, last_row[-1]
+        batch["candidates"] = cand
+    return batch
+
+
+def registry_kernel_times(name: str, params: dict, batch: dict) -> dict:
+    """Both kernels at an arch's serve_p99 inputs: time per launch, the
+    plain version's, the bound, and the error against the plain version."""
+    p = dlrm.add_remap(params, batch["rank_of"])
+    idx = batch["indices"]
+    b, n_t, lk = idx.shape
+    dim = p["tables"][0].shape[1]
+    g_call = (p["tables"], p["hot_sizes"], idx, p["rank_of"], p["sls_desc"])
+    g_bytes, _ = sls_bytes(p, [batch])
+    esize = p["tables"][0].element_size()
+    with torch.inference_mode():
+        x = mlp(p["bot"], batch["dense"])
+        bags = dlrm.bags(p, idx)
+        dt = torch.promote_types(x.dtype, bags.dtype)
+        f_call = (x.to(dt), bags.to(dt))
+        t = n_t + 1
+        n_tri = t * (t - 1) // 2
+        isize = torch.empty((), dtype=dt).element_size()
+        flops_type = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        sls_type = F32_FLOPS if esize == 4 else BF16_FLOPS
+        out = {}
+        for entry, fn, plain, call, n_bytes, n_flops, ftype, tol, ln in (
+                ("recflash_sls_grouped", recflash_sls_grouped,
+                 ops.sls_grouped_ref, g_call, g_bytes, b * n_t * lk * dim,
+                 sls_type, out_tol(p["tables"][0].dtype), 4 * n_t + lk + 2),
+                ("dot_interaction_fused", dot_interaction_fused, ops.fused_ref,
+                 f_call, b * t * dim * isize + b * (dim + n_tri) * isize,
+                 2 * b * n_tri * dim, flops_type, out_tol(dt), 10)):
+            args = call if entry == "dot_interaction_fused" else call[:4]
+            err = compare(f"registry {name}: {entry} vs its plain version at "
+                          f"serve_p99", fn(*call), plain(*args), tol)
+            bound, by = bound_ms(n_bytes, n_flops, ftype)
+            out[entry] = dict(
+                shape=(f"B {b}, T {n_t}, L {lk}, D {dim} "
+                       f"{str(p['tables'][0].dtype)[6:]}"
+                       if entry == "recflash_sls_grouped" else
+                       f"B {b}, T {t}, D {dim} {str(dt)[6:]}"),
+                ms=time_ms(fn, [call], reps=50),
+                plain_ms=time_ms(plain, [args], reps=5, launches=ln),
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+            print(f"[registry] {name} {entry} ({out[entry]['shape']}): "
+                  f"{out[entry]['ms'] * 1e3:.2f} us/launch, plain "
+                  f"{out[entry]['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{bound * 1e3:.3f} us by {by}")
+    return out
+
+
+def registry_dlrm(name: str, cells: tuple, card: str,
+                  launches: dict) -> dict:
+    """``name``'s registry bundle on the card (its own dtype rule), a
+    permutation per table as rank_of, and each of ``cells`` through its
+    plan: one kernel-route call counted into ``launches``, held against the
+    plain=True plan on the same inputs, then timed."""
+    bundle = configs.get_arch(name)
+    cfg = bundle.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rank_of = [torch.randperm(v, generator=gen, device="cuda",
+                              dtype=torch.int32) for v in cfg.n_rows]
+    torch.cuda.synchronize()
+    table_gb = sum(t.numel() * t.element_size() for t in params["tables"])
+    print(f"[registry] {name}: {cfg.n_tables} tables, {sum(cfg.n_rows)} "
+          f"rows x {cfg.embed_dim} {str(params['tables'][0].dtype)[6:]} "
+          f"({table_gb / 1e9:.2f} GB) and rank_of "
+          f"({sum(r.numel() for r in rank_of) * 4 / 1e9:.2f} GB) made on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    out: dict = {"cells": {}}
+    for cell in cells:
+        step = bundle.steps[cell]
+        fn = step.make_fn(bundle, None, False).fn
+        plain = step.make_fn(bundle, None, False, plain=True).fn
+        batch = _registry_dlrm_batch(cfg, cell, rank_of, gen)
+
+        def plain_call(plain=plain, batch=batch):
+            if "candidates" not in batch:
+                return plain(params, batch)
+            return torch.cat([plain(params, {**batch, "candidates": c})
+                              for c in batch["candidates"].chunk(
+                                  REGISTRY_RETRIEVAL_CHUNKS)])
+
+        with torch.inference_mode():
+            reset_counts()
+            got = fn(params, batch)
+            torch.cuda.synchronize()
+            counted = read_counts()
+            for k, v in counted.items():
+                launches[k] += v
+            want_launches = (RETRIEVAL_LAUNCHES if cell == "retrieval_cand"
+                             else SERVE_LAUNCHES)
+            if counted != want_launches:
+                raise AssertionError(f"{name} {cell}: launches {counted} != "
+                                     f"{want_launches}")
+            n = configs.RECSYS_SHAPES[cell].get(
+                "n_candidates", configs.RECSYS_SHAPES[cell]["batch"])
+            if got.shape != (n,) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {cell}: logits not finite or "
+                                     f"not ({n},)")
+            err = compare(f"registry {name} {cell}: logits, kernels vs "
+                          f"plain=True plan", got, plain_call(), LOGIT_TOL)
+            del got
+            ms = call_ms(lambda fn=fn, batch=batch: fn(params, batch))
+            plain_ms = call_ms(plain_call, reps=2)
+        out["cells"][cell] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                                  launches=counted)
+        print(f"[registry] {name} {cell} ({n} rows): {ms:.3f} ms per call "
+              f"on {card} (plain=True {plain_ms:.3f} ms); launches per call "
+              f"{counted}; max abs err {err:.3e}")
+        if cell == "serve_p99":
+            out["kernels"] = registry_kernel_times(name, params, batch)
+        del batch
+    if name == REGISTRY_TRAIN:
+        out["train"] = registry_train(bundle, params, rank_of, gen, card,
+                                      launches)
+    torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[registry] {name}: peak device memory {out['peak_gb']:.2f} GB")
+    del params, rank_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def registry_train(bundle, params, rank_of, gen, card: str,
+                   launches: dict) -> dict:
+    """One step of the bundle's train_batch plan at its 65,536 samples
+    (row-wise adagrad on the tables, AdamW on the MLPs): the loss against
+    the plain route's on the same batch, the step's time and peak memory."""
+    cfg = bundle.cfg
+    step = bundle.steps["train_batch"]
+    plan = step.make_fn(bundle, None, False)
+    loss_fn = step.make_fn.keywords["loss_fn"]
+    batch = _registry_dlrm_batch(cfg, "train_batch", rank_of, gen)
+    opt_state = bundle.optimizer.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    new_params, _, loss = plan.fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    counted = read_counts()
+    for k, v in counted.items():
+        launches[k] += v
+    if counted != SERVE_LAUNCHES:
+        raise AssertionError(f"train step launches {counted} != "
+                             f"{SERVE_LAUNCHES}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(torch.isfinite(x).all() for x in tree.leaves(new_params)):
+        raise AssertionError("the train step's params are not finite")
+    del new_params
+    b = batch["labels"].shape[0]
+    with torch.no_grad():
+        parts = []
+        for lo in range(0, b, REGISTRY_PLAIN_CHUNK):
+            chunk = {k: (v[lo:lo + REGISTRY_PLAIN_CHUNK]
+                         if k != "rank_of" else v) for k, v in batch.items()}
+            part = loss_fn(params, chunk, None, ("data",), plain=True)
+            parts.append(part * chunk["labels"].shape[0])
+        plain_loss = torch.stack(parts).sum() / b
+    err = compare(f"registry {bundle.name} train_batch: loss, kernels vs "
+                  f"the plain route (in chunks of {REGISTRY_PLAIN_CHUNK})",
+                  loss, plain_loss, LOSS_TOL)
+    ms = call_ms(lambda: plan.fn(params, opt_state, batch), reps=2)
+    print(f"[registry] {bundle.name} train_batch ({b} samples, row-wise "
+          f"adagrad + AdamW): {ms:.1f} ms per step on {card}, loss "
+          f"{float(loss):.6f}, launches {counted}, peak device memory "
+          f"{peak:.2f} GB")
+    return dict(ms=ms, err=err, peak_gb=peak, loss=float(loss))
+
+
+def registry_other(card: str) -> dict:
+    """DIN's and BERT4Rec's serve_p99 plans and GraphSAGE's molecule and
+    full_graph_sm train plans at full size, on the card against the same
+    plan on the CPU with the same params and inputs."""
+    from repro_torch.models import graphsage
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    out = {}
+    for name, batch_fn in (
+            ("din", lambda cfg, b: _din_batch(cfg, b, rng, False)),
+            ("bert4rec", lambda cfg, b: _bert_batch(cfg, b, rng))):
+        bundle = configs.get_arch(name)
+        plan = bundle.steps["serve_p99"].make_fn(bundle, None, False)
+        params = bundle.init(0, device="cpu")
+        batch = batch_fn(bundle.cfg, configs.RECSYS_SHAPES["serve_p99"]
+                         ["batch"])
+        pc, bc = _to(params, cuda), _to(batch, cuda)
+        with torch.inference_mode():
+            err = compare(f"registry {name} serve_p99, card vs CPU",
+                          plan.fn(pc, bc), plan.fn(params, batch).to(cuda),
+                          RECSYS_TOL)
+            ms = call_ms(lambda plan=plan, pc=pc, bc=bc: plan.fn(pc, bc))
+        out[f"{name} serve_p99"] = dict(ms=ms, err=err)
+        print(f"[registry] {name} serve_p99: {ms:.3f} ms per call on {card}")
+    bundle = configs.get_arch("graphsage-reddit")
+    for cell in ("molecule", "full_graph_sm"):
+        plan = bundle.steps[cell].make_fn(bundle, None, False)
+        shapes = {k: tuple(x.shape) for k, x in plan.args[2].items()}
+        batch = _sage_registry_batch(shapes, rng)
+        params = graphsage.init(0, bundle.steps[cell].make_fn.keywords["cfg"],
+                                device="cpu")
+        opt_state = bundle.optimizer.init(params)
+        pc, oc, bc = _to(params, cuda), _to(opt_state, cuda), _to(batch, cuda)
+        g_loss, g_grads = plan.grads(pc, bc)
+        w_loss, w_grads = plan.grads(params, batch)
+        err = compare(f"registry graphsage {cell}: loss, card vs CPU",
+                      g_loss, w_loss.to(cuda), RECSYS_TOL)
+        check_tensors(f"registry graphsage {cell}: gradients, card vs CPU",
+                      tree.leaves(g_grads),
+                      [g.to(cuda) for g in tree.leaves(w_grads)],
+                      RECSYS_GRAD_REL_L2)
+        check_tensors(f"registry graphsage {cell}: params after the AdamW "
+                      f"step, card vs CPU",
+                      tree.leaves(plan.fn(pc, oc, bc)[0]),
+                      [x.to(cuda) for x in tree.leaves(
+                          plan.fn(params, opt_state, batch)[0])],
+                      RECSYS_GRAD_REL_L2)
+        ms = call_ms(lambda plan=plan, pc=pc, oc=oc, bc=bc: plan.fn(
+            pc, oc, bc), reps=3)
+        out[f"graphsage {cell}"] = dict(ms=ms, err=err)
+        print(f"[registry] graphsage {cell} train step: {ms:.3f} ms per "
+              f"step on {card}")
+    return out
+
+
+def _sage_registry_batch(shapes: dict, rng: np.random.Generator) -> dict:
+    """Inputs of a GraphSAGE train plan's batch shapes: a random Cora-sized
+    graph (140 training nodes) or random molecule graphs."""
+    if "edges" in shapes:
+        b, n, d = shapes["x"]
+        e = shapes["edges"][1]
+        sizes = rng.integers(n // 2, n + 1, b)
+        batch = {"x": rng.standard_normal((b, n, d)).astype(np.float32),
+                 "edges": np.stack([rng.integers(0, s, (e, 2))
+                                    for s in sizes]).astype(np.int32),
+                 "edge_mask": rng.random((b, e)) < 0.9,
+                 "node_mask": np.arange(n)[None, :] < sizes[:, None],
+                 "labels": rng.integers(0, 2, b).astype(np.int32)}
+    else:
+        n, d = shapes["feats"]
+        e = shapes["edge_src"][0]
+        train = np.zeros(n, np.float32)
+        train[rng.choice(n, 140, replace=False)] = 1.0
+        batch = {"feats": rng.standard_normal((n, d)).astype(np.float32),
+                 "edge_src": rng.integers(0, n, e).astype(np.int32),
+                 "edge_dst": rng.integers(0, n, e).astype(np.int32),
+                 "labels": rng.integers(0, 7, n).astype(np.int32),
+                 "train_mask": train}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def phase_registry(card: str) -> dict:
+    """The registry's recsys and GNN plans with mesh None at their full
+    shapes on the card: dlrm-mlperf in bf16 (48.07 GB of tables) through
+    serve_p99, serve_bulk and retrieval_cand, dlrm-rm2 and rmc1-3 through
+    serve_p99 and retrieval_cand, each held against its plain=True plan,
+    with both kernels timed at each arch's serve inputs; one train_batch
+    step of dlrm-rm2 at 65,536 samples; DIN and BERT4Rec serve_p99 and
+    GraphSAGE's molecule and full_graph_sm steps, card against CPU."""
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in COUNTERS}
+    out: dict = {"archs": {}}
+    for name, cells in REGISTRY_DLRM:
+        out["archs"][name] = registry_dlrm(name, cells, card, launches)
+    out["other"] = registry_other(card)
+    out["launches"] = launches
+    print(f"[registry] launches of the port's kernels over the phase's "
+          f"counted calls: {launches}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------- dryrun --
+DRYRUN_TIMEOUT_S = 900
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --arch all --mesh both`` in a
+    subprocess (this process held NCCL in the mesh phases), into a
+    temporary file: every cell's plan on rank 0's blocks of a fake 256- or
+    512-rank group, counted on meta tensors. Fails on any failed cell."""
+    t0 = time.perf_counter()
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        path = os.path.join(d, "dryrun.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--mesh", "both", "--jobs", str(jobs), "--out", path],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        recs = json.load(open(path)) if os.path.exists(path) else []
+    counts = {s: sum(x["status"] == s for x in recs)
+              for s in ("ok", "skip", "error")}
+    for x in sorted(recs, key=lambda x: (x["mesh"], x["arch"], x["shape"])):
+        if x["status"] == "ok":
+            roof = x["roofline"]
+            print(f"[dryrun] {x['arch']} x {x['shape']} @ {x['mesh']}: "
+                  f"flops/rank {roof['flops_per_device']:.3e}, bytes/rank "
+                  f"{roof['bytes_per_device']:.3e}, wire/rank "
+                  f"{roof['wire_bytes_per_device']:.3e}, bound "
+                  f"{roof['t_bound'] * 1e3:.3f} ms by {roof['bottleneck']}, "
+                  f"peak {roof['memory']['peak_bytes'] / 1e9:.2f} GB, "
+                  f"fits_hbm {roof['memory']['fits_hbm']}")
+        elif x["status"] == "error":
+            print(f"[dryrun] {x['arch']} x {x['shape']} @ {x['mesh']}: "
+                  f"FAILED {x['error']}")
+    print(f"[dryrun] {counts['ok']} ok / {counts['skip']} skip / "
+          f"{counts['error']} fail, {jobs} jobs, in "
+          f"{time.perf_counter() - t0:.1f} s (exit code {r.returncode})")
+    if r.returncode != 0 or counts["error"] or not counts["ok"]:
+        raise AssertionError(f"the dry-run failed:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return dict(counts=counts, records=recs)
 
 
 # ------------------------------------------------------------------- LM --
@@ -2584,15 +2975,22 @@ def main() -> int:
     recsys = phase_recsys(card)
     gc.collect()
     torch.cuda.empty_cache()
+    registry = phase_registry(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm_out = phase_lm(card)
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh = phase_lm_mesh(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun = phase_dryrun()
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
                "recsys": recsys["launches"], "lm": lm_out["launches"],
-               "lm_mesh": lm_mesh["launches"]}
+               "lm_mesh": lm_mesh["launches"],
+               "registry": registry["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]
@@ -2600,6 +2998,11 @@ def main() -> int:
             e["launches"] = sum(e["launches_by_path"].values())
             if name in bf16["kernels"]:
                 e["bf16"] = bf16["kernels"][name]
+            # the registry archs' serve inputs: new shapes of the kernel
+            if e is r:
+                e["registry"] = {
+                    arch: a["kernels"][name]
+                    for arch, a in registry["archs"].items()}
     for r in records:
         for e in [r, *r["entries"]]:
             yard = (f"library {e['library_ms'] * 1e3:.2f} us"
@@ -2655,6 +3058,16 @@ def main() -> int:
               + ", ".join(f"{k} {v:.2f} ms" for k, v in r["ms"].items())
               + f"; collectives {r['calls']}; peak {r['peak_gb']:.2f} GB; "
               f"max abs err {r['err']:.3e}")
+    for name, a in registry["archs"].items():
+        print(f"[registry] {name} on {card}: "
+              + ", ".join(f"{c} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f})"
+                          for c, v in a["cells"].items())
+              + (f", train_batch {a['train']['ms']:.1f} ms"
+                 if "train" in a else "")
+              + f"; peak {a['peak_gb']:.2f} GB")
+    print(f"[dryrun] {dryrun['counts']['ok']} ok / "
+          f"{dryrun['counts']['skip']} skip / {dryrun['counts']['error']} "
+          f"fail")
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

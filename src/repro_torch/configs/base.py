@@ -10,10 +10,13 @@ A bundle owns what a launcher needs per (arch x shape) cell:
 * ``param_rules`` / ``opt_rules``: path-substring -> ``PartitionSpec``
   rules (``distributed.shardings.make_param_specs``); opt rules default to
   the param rules and may add ZeRO-style axes for optimizer state;
-* ``model_flops[shape]``: MODEL_FLOPS (6ND for LM train, 2ND inference).
+* ``model_flops[shape]``: MODEL_FLOPS (6ND for LM train, 2ND inference;
+  analytic for the recsys and GNN archs).
 
-The registry holds the five LM archs; the recsys archs of the reference's
-registry are not registered yet (ROADMAP A14).
+The registry holds the reference's thirteen archs: the five LMs, the five
+DLRMs (dlrm-mlperf, dlrm-rm2, rmc1-3), DIN, BERT4Rec and GraphSAGE. The
+arch modules register on import of ``all_archs``, which ``get_arch`` and
+``list_archs`` import lazily, as the reference's do.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ def register(name: str):
 def get_arch(name: str) -> ArchBundle:
     """A new bundle of the registered arch ``name``
     (``repro/configs/base.py:63-67``)."""
-    import repro_torch.configs  # noqa: F401  (its arch modules register)
+    import repro_torch.configs.all_archs  # noqa: F401  (populates it)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -80,9 +83,8 @@ def get_arch(name: str) -> ArchBundle:
 
 def list_archs() -> list[str]:
     """The registered archs, sorted (``repro/configs/base.py:70-72``): the
-    five LM archs; the reference's recsys archs are not ported yet (ROADMAP
-    A14)."""
-    import repro_torch.configs  # noqa: F401
+    reference's thirteen."""
+    import repro_torch.configs.all_archs  # noqa: F401
     return sorted(_REGISTRY)
 
 

@@ -47,6 +47,16 @@ class CellPlan:
     # the train plan's (params, batch) -> (loss, gradients summed over the
     # batch axes): its fn's step before the optimizer's update
     grads: Any = None
+    # the specs of the arguments as ``fn`` takes them on a rank (the port's
+    # layout), where they differ from ``in_specs``: the params whole where
+    # the model has no mesh branch of its own (``whole``); None is
+    # ``in_specs``
+    layout: Any = None
+
+    def local_specs(self):
+        """The specs that cut each argument to the block ``fn`` takes on a
+        rank."""
+        return self.in_specs if self.layout is None else self.layout
 
 
 def bt_axes(multi_pod: bool):
@@ -56,6 +66,17 @@ def bt_axes(multi_pod: bool):
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def whole(specs):
+    """``specs`` with every leaf replicated: an argument each rank holds
+    whole."""
+    return tree.tree_map(lambda _: P(), specs)
+
+
+def _unsplit_seq(spec):
+    """A cache spec with its sequence axis (``model``) held whole."""
+    return P(*(None if e == "model" else e for e in spec))
 
 
 # ------------------------------------------------------------- LM shapes --
@@ -274,7 +295,8 @@ def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
     return CellPlan(fn=train_step, args=(params, opt_state, batch),
                     in_specs=(p_specs, o_specs, b_specs),
                     out_specs=(p_specs, o_specs, P()),
-                    donate=(0, 1), grads=loss_and_grads)
+                    donate=(0, 1), grads=loss_and_grads,
+                    layout=(whole(p_specs), whole(o_specs), b_specs))
 
 
 def build_decode_plan(bundle: ArchBundle, mesh, multi_pod: bool,
@@ -306,7 +328,9 @@ def build_decode_plan(bundle: ArchBundle, mesh, multi_pod: bool,
     return CellPlan(fn=serve_step, args=(params, cache, tokens),
                     in_specs=(p_specs, c_specs, P(axes)),
                     out_specs=(P(axes, "model"), c_specs),
-                    donate=(1,))
+                    donate=(1,),
+                    layout=(whole(p_specs),
+                            tree.tree_map(_unsplit_seq, c_specs), P(axes)))
 
 
 def build_prefill_plan(bundle: ArchBundle, mesh, multi_pod: bool,
@@ -330,7 +354,8 @@ def build_prefill_plan(bundle: ArchBundle, mesh, multi_pod: bool,
 
     return CellPlan(fn=prefill_step, args=(params, tokens),
                     in_specs=(p_specs, P(axes, None)),
-                    out_specs=(P(axes, "model"), c_specs))
+                    out_specs=(P(axes, "model"), c_specs),
+                    layout=(whole(p_specs), P(axes, None)))
 
 
 def lm_model_flops(cfg: lm.LMConfig, n_active: float, shape: str) -> float:

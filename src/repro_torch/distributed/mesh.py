@@ -33,7 +33,14 @@ leave that layout along a dim (an ``all_gather`` whose cotangent is the
 rank's own block, and its transpose).
 
 ``init`` starts the process group explicitly: NCCL for ``cuda`` (the
-default), gloo only when the caller asks for the CPU. Nothing falls back.
+default), gloo only when the caller asks for the CPU, and for ``meta`` the
+fake backend of ``torch.testing`` (one process standing for rank ``rank``
+of any world size, whose collectives move nothing), on which the dry-run
+(``launch.dryrun``) runs a plan's shapes. Nothing falls back.
+
+Every collective is reported to the callables in its mesh's
+``observers`` as ``(kind, mesh, axes, operand)``, where
+``launch.op_stats`` counts the bytes each puts on the wire.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.shardings import (NamedSharding, PartitionSpec,
                                                unmentioned)
 
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 
 def init(device: str | torch.device = "cuda", *, rank: int | None = None,
@@ -62,12 +69,17 @@ def init(device: str | torch.device = "cuda", *, rank: int | None = None,
     the environment (as ``torchrun`` sets them); pass a ``store`` (e.g. a
     ``FileStore``) or an ``init_method`` such as ``tcp://localhost:<port>``,
     else ``env://`` reads ``MASTER_ADDR`` and ``MASTER_PORT``. On ``cuda``
-    each rank takes card ``rank % device_count``. Returns the rank's device.
+    each rank takes card ``rank % device_count``. On ``meta`` this process
+    is rank ``rank`` of a fake group (a ``FakeStore``, no peers). Returns
+    the rank's device.
     """
     dev = resolve_device(device)
     rank = int(os.environ["RANK"]) if rank is None else rank
     world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
                   else world_size)
+    if dev.type == "meta" and store is None:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        store = FakeStore()
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
@@ -85,7 +97,7 @@ class Mesh:
 
     ``axis_index``, ``axis_size`` and ``group`` take one axis name or a
     tuple of names. ``calls`` counts the collectives this mesh has issued,
-    by kind, backwards included.
+    by kind, backwards included; ``observers`` are told of each.
     """
 
     def __init__(self, device_mesh):
@@ -97,8 +109,12 @@ class Mesh:
                               strict=True))
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if device_mesh.device_type == "cuda"
+                       else torch.device("meta")
+                       if dist.get_backend() == BACKENDS["meta"]
                        else torch.device("cpu"))
         self.calls: collections.Counter = collections.Counter()
+        # callables told of each collective: (kind, mesh, axes, operand)
+        self.observers: list = []
         self._ranks = device_mesh.mesh.numpy().copy()    # coordinate -> rank
         self._groups: dict[frozenset, dist.ProcessGroup] = {}
         self._orders: dict[tuple, tuple] = {}
@@ -174,7 +190,8 @@ def make_mesh(shape, axes, device: str | torch.device = "cuda") -> Mesh:
     """A mesh of ``shape`` named ``axes`` over the default process group
     (``init`` first): ``init_device_mesh(device_type, shape,
     mesh_dim_names=axes)``, ranks laid out row-major (the last axis
-    fastest), as ``jax.make_mesh`` lays out devices."""
+    fastest), as ``jax.make_mesh`` lays out devices. A ``meta`` mesh is a
+    CPU device mesh over the fake group; its tensors are meta tensors."""
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
     if not dist.is_initialized():
@@ -188,10 +205,16 @@ def make_mesh(shape, axes, device: str | torch.device = "cuda") -> Mesh:
     if math.prod(shape) != dist.get_world_size():
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; "
                          f"the world has {dist.get_world_size()}")
-    return Mesh(init_device_mesh(dev.type, shape, mesh_dim_names=axes))
+    return Mesh(init_device_mesh("cpu" if dev.type == "meta" else dev.type,
+                                 shape, mesh_dim_names=axes))
 
 
 # -- collectives ------------------------------------------------------------
+
+
+def _observe(kind: str, mesh: Mesh, axes, x: torch.Tensor) -> None:
+    for fn in mesh.observers:
+        fn(kind, mesh, axes, x)
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
@@ -199,6 +222,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     mesh.calls["all_reduce"] += 1
+    _observe("all_reduce", mesh, axes, x)
     return out
 
 
@@ -218,6 +242,7 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     out = src.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=group)
     mesh.calls["reduce_scatter"] += 1
+    _observe("reduce_scatter", mesh, axes, x)
     return out
 
 
@@ -228,6 +253,7 @@ def _all_gather(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
     mesh.calls["all_gather"] += 1
+    _observe("all_gather", mesh, axes, x)
     if order is not None:
         parts = out.chunk(n)
         out = torch.cat([parts[g] for g in order])

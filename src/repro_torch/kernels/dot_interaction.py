@@ -12,7 +12,8 @@ two entries:
   own contract.
 
 The source's note says what bounds the kernel and how it is laid out. On a
-CPU tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA
+CPU tensor a wrapper runs the plain version (``kernels.ref``), and on a
+meta tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA
 tensor it launches the kernel on the current stream or raises.
 
 ``DotInteractionFused`` gives the fused entry a gradient. The TPU kernel
@@ -69,7 +70,7 @@ def dot_interaction(z: torch.Tensor, block_b: int = 64) -> torch.Tensor:
     block_b = min(block_b, b)
     if block_b < 1 or b % block_b:
         raise ValueError(f"batch {b} must divide by block_b {block_b}")
-    if z.device.type == "cpu":
+    if z.device.type in ("cpu", "meta"):
         return dot_interaction_ref(z)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
@@ -103,7 +104,7 @@ def dot_interaction_fused(bottom_out: torch.Tensor,
         raise ValueError("bottom_out and bags must be on one device")
     b, d = bottom_out.shape
     t = bags.shape[1] + 1
-    if bottom_out.device.type == "cpu":
+    if bottom_out.device.type in ("cpu", "meta"):
         return dot_interaction_fused_ref(bottom_out, bags)
     if bottom_out.device.type != "cuda":
         raise ValueError(f"unsupported device {bottom_out.device}")

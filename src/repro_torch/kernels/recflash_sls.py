@@ -14,7 +14,8 @@ serves two entries:
 
 The source's note says what bounds the kernel and how it serves the hot
 tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
-tensor a wrapper runs the plain version (``kernels.ref``). On a CUDA tensor
+tensor a wrapper runs the plain version (``kernels.ref``), and on a meta
+tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA tensor
 it launches the kernel on the current stream or raises.
 
 Both entries add each bag in float32 in lookup order and return it in the
@@ -164,7 +165,7 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     b = indices.shape[0]
     if block_b < 1 or b % block_b:
         raise ValueError(f"batch {b} must divide by block_b {block_b}")
-    if hot.device.type == "cpu":
+    if hot.device.type in ("cpu", "meta"):
         return recflash_sls_ref(hot, cold, indices)
     if hot.device.type != "cuda":
         raise ValueError(f"unsupported device {hot.device}")
@@ -213,7 +214,7 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
                         f"{tuple(indices.shape)} {indices.dtype}")
     if indices.device != dev:
         raise ValueError("tables and indices must be on one device")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return recflash_sls_grouped_ref(tables, hot_sizes, indices, rank_of)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")

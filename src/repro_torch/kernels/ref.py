@@ -55,13 +55,23 @@ def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
     paper's hash table), or ranks when ``rank_of`` is None; an id is clamped
     into [0, len(rank_of[t])) and a rank into [0, V_t). Returns
     (B, n_tables, D) in the tables' dtype, every table's bags added in
-    float32 in one ``sum_in_order`` (L launches, not n_tables * L)."""
+    float32 in one ``sum_in_order`` (L launches, not n_tables * L). The two
+    tiers are the stored table's two slices, so the rows are read from it.
+    Where the table wants a gradient the table is widened before the
+    gather, so that its gradient adds up in float32 (as the kernel's
+    Function's does); otherwise only the gathered rows are widened (a
+    dlrm-mlperf table is 10 GB in bf16, 20 GB widened)."""
+    if len(hot_sizes) != len(tables):
+        raise ValueError("need one hot size per table")
     rows = []
-    for t, (stored, h) in enumerate(zip(tables, hot_sizes, strict=True)):
+    for t, stored in enumerate(tables):
         idx = indices[:, t, :]
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
-        rows.append(lookup(_widen(torch.cat([stored[:h], stored[h:]])), idx))
+        if torch.is_grad_enabled() and stored.requires_grad:
+            rows.append(lookup(_widen(stored), idx))
+        else:
+            rows.append(_widen(lookup(stored, idx)))
     return sum_in_order(torch.stack(rows, dim=1)).to(tables[0].dtype)
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.embedding.layout import lookup
 from repro_torch.models.common import (dense, dense_init, layer_norm,
-                                       ln_init, normal_init)
+                                       ln_init, make_generator, normal_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +51,7 @@ def init(seed: int, cfg: Bert4RecConfig, dtype=torch.float32,
          device: str | torch.device = "cuda") -> dict:
     """Random parameters with the reference's distributions, drawn on
     ``device`` from a generator seeded with ``seed`` (not JAX's draws)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = make_generator(seed, resolve_device(device))
     d = cfg.embed_dim
     params = {
         "items": normal_init(gen, (cfg.n_items, d), 0.02, dtype),
@@ -98,14 +98,10 @@ def encode(params, items: torch.Tensor, pad_mask: torch.Tensor,
                       params["final_ln"]["beta"])
 
 
-def loss(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
-    """Cloze loss over gathered masked positions.
-
-    batch: items (B,T) with [mask] inserted, mask_pos (B,M) int positions,
-    targets (B,M) true ids at those positions, target_mask (B,M) bool
-    (valid entries), pad_mask (B,T) bool. Only the M gathered positions
-    are scored against the vocabulary: (B, M, V) logits, not (B, T, V).
-    """
+def cloze_terms(params, batch, cfg: Bert4RecConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cloze loss's two sums: the NLL over the valid masked positions,
+    and their count (``loss`` is the one over the other, at least 1)."""
     hidden = encode(params, batch["items"], batch["pad_mask"], cfg)
     h = torch.take_along_dim(hidden, batch["mask_pos"][..., None].long(),
                              dim=1)                         # (B, M, D)
@@ -114,7 +110,19 @@ def loss(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
     nll = -torch.take_along_dim(logp, batch["targets"][..., None].long(),
                                 dim=-1)[..., 0]
     m = batch["target_mask"].float()
-    return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return (nll * m).sum(), m.sum()
+
+
+def loss(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
+    """Cloze loss over gathered masked positions.
+
+    batch: items (B,T) with [mask] inserted, mask_pos (B,M) int positions,
+    targets (B,M) true ids at those positions, target_mask (B,M) bool
+    (valid entries), pad_mask (B,T) bool. Only the M gathered positions
+    are scored against the vocabulary: (B, M, V) logits, not (B, T, V).
+    """
+    nll, count = cloze_terms(params, batch, cfg)
+    return nll / torch.clamp_min(count, 1.0)
 
 
 def score(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:

@@ -63,6 +63,19 @@ def dense(params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-sample binary cross-entropy of ``logits`` against labels ``y``,
+    written as the reference writes it (``max(l, 0) - l*y +
+    log1p(exp(-|l|))``), not as ``F.binary_cross_entropy_with_logits``,
+    whose rounding differs. ``|l|`` takes JAX's slope at 0 (1, where
+    ``torch.abs`` takes 0), so that a logit of exactly 0 (a sample whose
+    last hidden layer is all dead, under zero-initialised biases) gets the
+    reference's gradient too: ``-y`` there, not ``0.5 - y``."""
+    abs_l = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * y
+            + torch.log1p(torch.exp(-abs_l)))
+
+
 def mlp_init(gen: torch.Generator, sizes, dtype=torch.float32,
              bias=True) -> list:
     return [dense_init(gen, a, b, dtype, bias)

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.embedding.layout import lookup
-from repro_torch.models.common import mlp, mlp_init, uniform_init
+from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
+                                       mlp_init, uniform_init)
 
 # candidates per chunk of retrieval_score: each holds its (L, 4D) attention
 # features and (L, 80 + 40) hidden activations, about 0.1 MB per candidate
@@ -63,7 +64,7 @@ def init(seed: int, cfg: DINConfig, dtype=torch.float32,
          device: str | torch.device = "cuda") -> dict:
     """Random parameters with the reference's distributions, drawn on
     ``device`` from a generator seeded with ``seed`` (not JAX's draws)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = make_generator(seed, resolve_device(device))
     scale = cfg.n_items ** -0.5
     return {
         "items": uniform_init(gen, (cfg.n_items, cfg.embed_dim), scale,
@@ -98,13 +99,11 @@ def forward(params, batch, cfg: DINConfig) -> torch.Tensor:
 
 
 def loss(params, batch, cfg: DINConfig) -> torch.Tensor:
-    """Mean binary cross-entropy of the logits against ``labels``, written
-    as the reference writes it."""
-    logits = forward(params, batch, cfg)
-    y = batch["labels"]
-    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
-                      - logits * y
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    """Mean binary cross-entropy of the logits against ``labels``
+    (``models.common.bce_with_logits``: the reference's formula and its
+    gradient at a zero logit)."""
+    return torch.mean(bce_with_logits(forward(params, batch, cfg),
+                                      batch["labels"]))
 
 
 def retrieval_score(params, batch, cfg: DINConfig) -> torch.Tensor:

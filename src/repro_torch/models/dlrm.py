@@ -3,8 +3,9 @@
 dense features -> bottom MLP -> d-dim vector; each sparse field -> SLS
 (embedding-bag sum) -> d-dim vector; pairwise-dot interaction over the
 (n_tables + 1) vectors; concat [bottom_out, interactions] -> top MLP -> CTR
-logit. Port of ``repro.models.dlrm`` (``init``, ``interact``, ``forward``,
-``loss``, ``add_remap``, ``retrieval_score``, with their mesh branches).
+logit. Port of ``repro.models.dlrm`` (``DLRMConfig``, ``make_rmc`` and the
+paper's RMC1-3, ``init``, ``interact``, ``forward``, ``loss``,
+``add_remap``, ``retrieval_score``, with their mesh branches).
 
 Unlike the reference forward, which takes bags with ``jnp.take`` and the
 interaction with an einsum, this forward routes both through the port's
@@ -48,11 +49,11 @@ launch on the rank's rows.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-from repro_torch.configs import DLRMConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.mesh import out_boundary, psum
 from repro_torch.distributed.shardings import P
@@ -62,7 +63,60 @@ from repro_torch.embedding.sharded import (sharded_embedding_bag,
                                            sharded_remapped_bag)
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.recflash_sls import describe
-from repro_torch.models.common import mlp, mlp_init, uniform_init
+from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
+                                       mlp_init, uniform_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str
+    n_tables: int
+    n_dense: int
+    embed_dim: int
+    n_rows: tuple           # per-table vocab sizes (len == n_tables)
+    lookups: int            # multi-hot width per table
+    bot_mlp: tuple          # hidden sizes; input = n_dense, output = embed_dim
+    top_mlp: tuple          # hidden sizes; output = 1
+    interaction: str = "dot"
+
+    @property
+    def n_vectors(self) -> int:
+        return self.n_tables + 1
+
+    @property
+    def top_in(self) -> int:
+        if self.interaction == "dot":
+            n = self.n_vectors
+            return self.embed_dim + n * (n - 1) // 2
+        return self.n_vectors * self.embed_dim    # concat interaction
+
+    def flops_per_sample(self) -> int:
+        """MODEL_FLOPS estimate (fwd): 2*MACs of MLPs + interaction + SLS."""
+        f = 0
+        sizes = (self.n_dense,) + tuple(self.bot_mlp) + (self.embed_dim,)
+        f += sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:], strict=True))
+        tsizes = (self.top_in,) + tuple(self.top_mlp) + (1,)
+        f += sum(2 * a * b for a, b in zip(tsizes[:-1], tsizes[1:], strict=True))
+        f += 2 * self.n_vectors * self.n_vectors * self.embed_dim  # pairwise dot
+        f += 2 * self.n_tables * self.lookups * self.embed_dim     # SLS adds
+        return f
+
+
+def make_rmc(name: str, n_tables: int, dim: int, lookups: int,
+             bot: tuple, top: tuple, n_rows: int = 1_000_000,
+             n_dense: int | None = None) -> DLRMConfig:
+    """Table-II helper: sizes listed as `in-h1-..` for bottom, `h..-1` top."""
+    return DLRMConfig(name=name, n_tables=n_tables,
+                      n_dense=n_dense if n_dense is not None else bot[0],
+                      embed_dim=dim, n_rows=(n_rows,) * n_tables,
+                      lookups=lookups, bot_mlp=tuple(bot[1:-1]) + (bot[-1],),
+                      top_mlp=tuple(top[:-1]))
+
+
+# Table II (paper) — bottom lists include input dim, tops end with 1.
+RMC1 = make_rmc("rmc1", 8, 32, 80, (128, 64, 32), (256, 64, 1))
+RMC2 = make_rmc("rmc2", 32, 64, 120, (256, 128, 64), (128, 64, 1))
+RMC3 = make_rmc("rmc3", 10, 32, 20, (2560, 1024, 256, 32), (512, 256, 1))
 
 
 def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
@@ -70,7 +124,7 @@ def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
     """Random parameters with the reference's distributions, drawn on
     ``device`` from a generator seeded with ``seed`` (the draws differ from
     JAX's; transplant reference weights with ``repro_torch.weights``)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = make_generator(seed, resolve_device(device))
     tables = [uniform_init(gen, (n, cfg.embed_dim), 1.0 / math.sqrt(n), dtype)
               for n in cfg.n_rows]
     bot_sizes = (cfg.n_dense,) + tuple(cfg.bot_mlp)
@@ -207,10 +261,9 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
 def loss(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
          hybrid: bool = False, table_2d: bool = False,
          plain: bool = False) -> torch.Tensor:
-    """Mean binary cross-entropy of the CTR logits against ``labels``,
-    written as the reference writes it (``max(l, 0) - l*y +
-    log1p(exp(-|l|))``), not as ``F.binary_cross_entropy_with_logits``,
-    whose rounding differs.
+    """Mean binary cross-entropy of the CTR logits against ``labels``
+    (``models.common.bce_with_logits``: the reference's formula and its
+    gradient at a zero logit).
 
     Under a mesh it is the mean over the global batch, on every rank. Its
     gradients are those of ``jax.grad`` under ``shard_map``'s rules: after
@@ -223,8 +276,7 @@ def loss(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
     hybrid = hybrid and mesh is not None and axes is not None
     if hybrid:
         y = _constrain_hybrid(y, mesh, axes)
-    per = (torch.maximum(logits, logits.new_zeros(())) - logits * y
-           + torch.log1p(torch.exp(-torch.abs(logits))))
+    per = bce_with_logits(logits, y)
     if mesh is None:
         return torch.mean(per)
     # the logits' rows are split over the batch axes (and model when
@@ -263,7 +315,11 @@ def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
     cand = _bag(params, batch["candidates"][:, None], cfg.n_tables - 1,
                 mesh, axes, plain=plain)                         # (N, D)
     n = cand.shape[0]
-    all_bags = torch.cat([fixed.expand(n, -1, -1), cand[:, None, :]], dim=1)
+    # the N rows of bags in the interaction's dtype at once (not in the
+    # tables' and again in that one: dlrm-mlperf's are 6.9 GB in bf16)
+    dt = torch.promote_types(x.dtype, cand.dtype)
+    all_bags = torch.cat([fixed.to(dt).expand(n, -1, -1),
+                          cand[:, None, :].to(dt)], dim=1)
     feat = interact(x.expand(n, -1), all_bags, cfg.interaction, plain)
     return mlp(params["top"], feat)[:, 0]                        # (N,)
 

@@ -28,8 +28,10 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import psum
 from repro_torch.embedding.layout import lookup
-from repro_torch.models.common import dense, dense_init, mlp, mlp_init
+from repro_torch.models.common import (dense, dense_init, make_generator,
+                                       mlp, mlp_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +50,7 @@ def init(seed: int, cfg: SAGEConfig, dtype=torch.float32,
          device: str | torch.device = "cuda") -> dict:
     """Random parameters with the reference's distributions, drawn on
     ``device`` from a generator seeded with ``seed`` (not JAX's draws)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = make_generator(seed, resolve_device(device))
     layers = []
     d_prev = cfg.d_in
     for _ in range(cfg.n_layers):
@@ -90,16 +92,27 @@ def _log_softmax_nll(logits: torch.Tensor,
 
 def forward_full(params, x: torch.Tensor, edge_src: torch.Tensor,
                  edge_dst: torch.Tensor, cfg: SAGEConfig,
-                 n_nodes: int | None = None) -> torch.Tensor:
+                 n_nodes: int | None = None, mesh=None,
+                 axes=("data",)) -> torch.Tensor:
     """Full-graph forward. x (N,F); edges src->dst (E,) each -> (N,
-    n_classes) logits."""
+    n_classes) logits.
+
+    Under a mesh the edges are this rank's block over ``axes`` (the
+    nodes whole on every rank): each segment sum, the degrees' too, is
+    summed over ``axes``, so every rank computes the whole graph's logits.
+    """
     n = n_nodes or x.shape[0]
-    deg = _segment_sum(torch.ones(edge_dst.shape, dtype=torch.float32,
-                                  device=edge_dst.device), edge_dst, n)
+
+    def agg(data):
+        out = _segment_sum(data, edge_dst, n)
+        return out if mesh is None else psum(out, mesh, axes)
+
+    deg = agg(torch.ones(edge_dst.shape, dtype=torch.float32,
+                         device=edge_dst.device))
     deg = torch.clamp_min(deg, 1.0)[:, None]
     h = x
     for i, p in enumerate(params["layers"]):
-        neigh = _segment_sum(lookup(h, edge_src), edge_dst, n) / deg
+        neigh = agg(lookup(h, edge_src)) / deg
         h = _sage_layer(p, h, neigh, is_last=(i == cfg.n_layers - 1))
     return mlp(params["cls"], h)
 
@@ -152,14 +165,15 @@ def forward_batched_graphs(params, x: torch.Tensor, edges: torch.Tensor,
     return mlp(params["cls"], pooled)
 
 
-def loss_node(params, batch, cfg: SAGEConfig,
-              mode: str = "full") -> torch.Tensor:
+def loss_node(params, batch, cfg: SAGEConfig, mode: str = "full",
+              mesh=None, axes=("data",)) -> torch.Tensor:
     """Node-classification cross-entropy: over the ``train_mask``ed nodes
-    of the full graph (``mode="full"``), or the mean over the sampled
-    blocks' seeds (any other mode)."""
+    of the full graph (``mode="full"``; under a mesh, with the edges this
+    rank's block over ``axes``), or the mean over the sampled blocks' seeds
+    (any other mode)."""
     if mode == "full":
         logits = forward_full(params, batch["feats"], batch["edge_src"],
-                              batch["edge_dst"], cfg)
+                              batch["edge_dst"], cfg, mesh=mesh, axes=axes)
         nll = _log_softmax_nll(logits, batch["labels"])
         sel = batch["train_mask"].to(nll.dtype)
         return (nll * sel).sum() / torch.clamp_min(sel.sum(), 1.0)

@@ -38,7 +38,7 @@ fixes one layout there: each rank holds its rows of the batch
 on every rank of the other axes, and the params whole; the dense parts run
 on those rows with the whole params, alike on each rank of ``model``.
 Megatron tensor parallelism of the dense parts is not ported (ROADMAP
-A14). A region cuts its blocks of params and activations by the
+P9). A region cuts its blocks of params and activations by the
 reference's in_specs and rejoins the layout at its out_spec. Its
 boundaries carry the gradients: an input's cotangent is summed over the
 axes that replicate it (``distributed.mesh.in_boundary``), an output's is

@@ -117,8 +117,12 @@ def _slots(le, valid, e_local: int, cap_e: int):
     order = torch.argsort(torch.where(valid, le, e_local), stable=True)
     v_s = valid[order]
     le_s = torch.where(v_s, le[order], e_local - 1)
-    group_sizes = torch.bincount(torch.where(v_s, le_s, e_local),
-                                 minlength=e_local + 1)[:e_local]
+    # a scatter-add, not bincount: its length is fixed by e_local, so the
+    # dry-run (launch.dryrun) runs it on meta tensors too
+    key = torch.where(v_s, le_s, e_local).long()
+    group_sizes = torch.zeros(e_local + 1, dtype=torch.int64,
+                              device=le.device).scatter_add_(
+        0, key, torch.ones_like(key))[:e_local]
     start = torch.cumsum(group_sizes, 0) - group_sizes
     slot = torch.arange(n, device=le.device) - start[le_s]
     ok = v_s & (slot >= 0) & (slot < cap_e)

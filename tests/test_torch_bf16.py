@@ -309,3 +309,21 @@ class TestOutOfRangeIds:
         for bad in (V, V + 8):
             out = fwd(bad)
             assert np.isnan(out[0]) and np.isfinite(out[1:]).all()
+
+
+def test_plain_grouped_sls_gradient_adds_up_in_float32():
+    """The plain grouped SLS's table gradient under autograd adds in
+    float32 and rounds once, as the kernel's Function's does: 4096 bags
+    of one repeated id give that row a gradient of 4096 in bf16, where
+    adding in bf16 would stall at 256. Without a gradient the rows are
+    gathered before they are widened, with the same values."""
+    table = torch.randn(10, 8).to(torch.bfloat16).requires_grad_()
+    idx = torch.zeros(4096, 1, 1, dtype=torch.int32)
+    out = ops.sls_grouped_ref([table], [1], idx)
+    (g,) = torch.autograd.grad(out.float().sum(), table)
+    assert g.dtype == torch.bfloat16
+    assert torch.equal(g[0], torch.full((8,), 4096.0, dtype=torch.bfloat16))
+    assert not g[1:].any()
+    with torch.no_grad():
+        torch.testing.assert_close(ops.sls_grouped_ref([table], [1], idx),
+                                   out.detach(), rtol=0, atol=0)

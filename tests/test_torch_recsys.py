@@ -173,8 +173,13 @@ class TestBert4Rec:
                 "pad_mask": pad_mask}
 
     def test_configs_equal_reference(self):
-        assert dataclasses.asdict(configs.BERT4REC) == \
+        """The model's default config (ML-20m's 26,744 items) and the
+        registry's (``bert4rec_arch.CONFIG``: padded to /16, 26,752)."""
+        assert dataclasses.asdict(bert4rec.Bert4RecConfig()) == \
             dataclasses.asdict(jbert.Bert4RecConfig())
+        assert dataclasses.asdict(configs.BERT4REC) == \
+            dataclasses.asdict(jax_bert4rec_arch.CONFIG)
+        assert configs.BERT4REC.n_items == 26_752
         assert configs.BERT4REC_N_MASK == jax_bert4rec_arch.N_MASK
         assert self.cfg.flops_per_sample() == self.jcfg.flops_per_sample()
 

@@ -66,12 +66,15 @@ def plans(bundles):
 
 
 def test_list_archs_is_the_lm_half():
-    """The port registers the five LM archs (the recsys ones wait), each
-    of which the reference registers too."""
-    assert configs.list_archs() == sorted(LM_ARCHS)
-    assert set(LM_ARCHS) <= set(jbase.list_archs())
+    """The port registers the five LM archs, each of which the reference
+    registers too, and with the recsys half (``test_torch_registry_recsys
+    .py``) the reference's whole list; an unknown name raises."""
+    assert set(LM_ARCHS) <= set(configs.list_archs())
+    assert configs.list_archs() == jbase.list_archs()
+    assert [n for n in configs.list_archs()
+            if configs.get_arch(n).family == "lm"] == sorted(LM_ARCHS)
     with pytest.raises(KeyError):
-        configs.get_arch("dlrm-rm2")
+        configs.get_arch("dlrm-rm3")
 
 
 @pytest.mark.parametrize("name", LM_ARCHS)
