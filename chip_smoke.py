@@ -82,7 +82,8 @@ Phases, each of which fails the run when it fails:
 12. lm_mesh: the LM under a (1, 1) ("data", "model") mesh over NCCL at
    world size 1, through the registry's plans (``configs.get_arch``) at
    full width with the depth cut as in phase 11, each against the same
-   plan without a mesh: qwen3-moe-30b-a3b's prefill at (8, 4096) (sharded
+   plan without a mesh, the Megatron TP, FSDP and split-K code run at
+   axis size 1: qwen3-moe-30b-a3b's prefill at (8, 4096) (sharded
    expert parallelism) and 32 decode steps (the 2D serving layout),
    deepseek-v3-671b's prefill at (2, 4096) (2D, in chunks of 2048 tokens,
    against the mesh-free MoE over the same chunks) and 32 decode steps,
@@ -104,11 +105,18 @@ Phases, each of which fails the run when it fails:
    plain route's on the same batch; DIN's and BERT4Rec's serve_p99 and
    GraphSAGE's molecule and full_graph_sm steps, card against CPU; peak
    memory per arch;
-14. dryrun (last): ``python -m repro_torch.launch.dryrun --arch all --mesh
+14. dryrun: ``python -m repro_torch.launch.dryrun --arch all --mesh
    both`` in a subprocess: every cell's plan run on rank 0's blocks of meta
    tensors under a fake 256- or 512-rank group, its per-rank flops, bytes,
    wire bytes, H100 roofline bound, peak and ``fits_hbm`` printed; any
-   failed cell fails the run.
+   failed cell fails the run;
+15. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
+   real tensors on the card, at full width and depth, under the fake
+   256-rank group this process starts (its collectives move nothing):
+   qwen3-1.7b's train_4k, prefill_32k and decode_32k and
+   deepseek-v3-671b's decode_32k through the plans' ``fn``; per-call time
+   and peak memory (compute only, collectives not run) beside the
+   dry-run's counted peak; no launch of either kernel.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -2942,6 +2950,151 @@ def phase_lm_mesh(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- lm_blocks --
+# one rank's blocks of the 16 x 16 production mesh at full width and depth,
+# on the card under the fake process group (its collectives move nothing:
+# compute only, collectives not run)
+LM_BLOCK_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                  ("qwen3-1.7b", "decode_32k"),
+                  ("deepseek-v3-671b", "decode_32k"))
+LM_BLOCK_REPS = {"train_4k": 1, "prefill_32k": 2, "decode_32k": 5}
+
+
+def lm_rank_blocks(mesh, args, specs, vocab: int,
+                   gen: torch.Generator) -> tuple:
+    """Rank ``mesh.coord``'s block of each of a plan's ``args`` (meta
+    tensors at full size) under ``specs``, on the card: weights N(0, 0.02)
+    in their dtype, norms' gammas 1, token ids in the vocab, the optimizer
+    state and step counts zero."""
+    from repro_torch.distributed.shardings import block_index
+    out = []
+    for i, (arg, sp) in enumerate(zip(args, specs, strict=True)):
+        leaves = []
+        for (path, x), spec in zip(tree.flatten_with_path(arg),
+                                   tree.flatten_up_to(arg, sp),
+                                   strict=True):
+            idx = block_index(mesh.shape, spec, tuple(x.shape), mesh.coord)
+            shape = tuple(sl.stop - sl.start for sl in idx)
+            if not x.is_floating_point():
+                y = (torch.randint(0, vocab, shape, generator=gen,
+                                   device="cuda", dtype=x.dtype)
+                     if "['t']" not in path else
+                     torch.zeros(shape, dtype=x.dtype, device="cuda"))
+            elif i > 0:                          # optimizer state
+                y = torch.zeros(shape, dtype=x.dtype, device="cuda")
+            elif "gamma" in path:
+                y = torch.ones(shape, dtype=x.dtype, device="cuda")
+            else:
+                y = torch.empty(shape, dtype=x.dtype, device="cuda").normal_(
+                    0.0, 0.02, generator=gen)
+            leaves.append(y)
+        out.append(tree.unflatten(arg, leaves))
+    return tuple(out)
+
+
+def lm_cache_block(cfg, mesh) -> dict:
+    """Rank ``mesh.coord``'s zero block of the decode cell's bf16 cache
+    on the card, as ``models.lm.init_cache`` makes it under the mesh (its
+    rows over ``data``, its slots over ``model``)."""
+    import dataclasses
+
+    from repro_torch.configs.lm_common import LM_SHAPES
+    from repro_torch.models import lm
+    shp = LM_SHAPES["decode_32k"]
+    return lm.init_cache(dataclasses.replace(cfg, batch_axes=("data",)),
+                         shp["batch"], shp["seq"], torch.bfloat16, "cuda",
+                         mesh)
+
+
+def phase_lm_blocks(card: str, dry: dict) -> dict:
+    """Rank 0's blocks of the 16 x 16 production mesh on the card, at full
+    width and depth, for qwen3-1.7b's three cells and deepseek-v3-671b's
+    decode_32k: each plan's ``fn`` (its TP, FSDP and split-K code) on real
+    CUDA tensors under the fake 256-rank process group
+    (``distributed.mesh.init("meta")``), whose collectives move nothing.
+    So only time and memory are read, compute only (collectives not run):
+    the per-call time and the card's peak memory, beside the dry-run's
+    counted peak for the same cell. The values are garbage where a gather
+    moved nothing and are not held; the CPU tests hold them."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    reset_counts()
+    t0 = time.perf_counter()
+    counted = {(x["arch"], x["shape"]): x["roofline"]["memory"]["peak_bytes"]
+               for x in dry["records"]
+               if x["status"] == "ok" and x["mesh"] == "16x16"}
+    dmesh.init("meta", rank=0, world_size=256)
+    out: dict = {}
+    try:
+        mesh = make_production_mesh(multi_pod=False, device="meta")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        print(f"[lm_blocks] process group: {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}; mesh {mesh.shape}, rank 0 at "
+              f"{mesh.coord}; CUDA tensors, compute only (collectives not "
+              f"run)")
+        for name, cell in LM_BLOCK_CELLS:
+            bundle = configs.get_arch(name)
+            plan = bundle.steps[cell].make_fn(bundle, mesh, False)
+            if plan.layout is not None:
+                raise AssertionError(f"{name} {cell}: layout is not None")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            if cell == "decode_32k":   # the cache's block by init_cache
+                blocks = lm_rank_blocks(mesh, plan.args[::2],
+                                        plan.local_specs()[::2],
+                                        bundle.cfg.vocab, gen)
+                blocks = (blocks[0], lm_cache_block(bundle.cfg, mesh),
+                          blocks[1])
+            else:
+                blocks = lm_rank_blocks(mesh, plan.args, plan.local_specs(),
+                                        bundle.cfg.vocab, gen)
+            args_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+            grad = torch.enable_grad() if cell == "train_4k" \
+                else torch.inference_mode()
+            with grad:
+                plan.fn(*blocks)                    # the first call
+                torch.cuda.synchronize()
+                reps = LM_BLOCK_REPS[cell]
+                t1 = time.perf_counter()
+                for _ in range(reps):
+                    res = plan.fn(*blocks)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3 / reps
+            peak = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+            want = counted.get((name, cell), float("nan")) / 1e9
+            # the output blocks: train's params, decode's cache as they
+            # came in; the logits the rank's rows of its vocab block
+            got, like = {"train_4k": (res[0], blocks[0]),
+                         "decode_32k": (res[1], blocks[1]),
+                         "prefill_32k": (res[0], None)}[cell]
+            shapes = ([tuple(x.shape) for x in tree.leaves(like)]
+                      if like is not None else
+                      [(blocks[1].shape[0], bundle.cfg.vocab // 16)])
+            if [tuple(x.shape) for x in tree.leaves(got)] != shapes:
+                raise AssertionError(f"{name} {cell}: output blocks of "
+                                     "other shapes than the plan's")
+            out[f"{name} {cell}"] = dict(ms=ms, peak_gb=peak, args_gb=args_gb,
+                                         dryrun_peak_gb=want)
+            print(f"[lm_blocks] {name} {cell} at full width and depth, rank "
+                  f"0 of 16 x 16 on {card}: {ms:.1f} ms per call (compute "
+                  f"only, collectives not run); arguments {args_gb:.2f} GB, "
+                  f"peak device memory {peak:.2f} GB (dry-run's counted peak "
+                  f"{want:.2f} GB)")
+            del blocks, res
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = read_counts()
+    print(f"[lm_blocks] launches of the port's kernels over the phase: "
+          f"{launches}; the phase took {time.perf_counter() - t0:.1f} s")
+    if any(launches.values()):
+        raise AssertionError("the LM's rank blocks launched a DLRM kernel")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2985,11 +3138,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun = phase_dryrun()
+    lm_blocks = phase_lm_blocks(card, dryrun)
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
                "recsys": recsys["launches"], "lm": lm_out["launches"],
                "lm_mesh": lm_mesh["launches"],
+               "lm_blocks": lm_blocks["launches"],
                "registry": registry["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
@@ -3065,6 +3220,12 @@ def main() -> int:
               + (f", train_batch {a['train']['ms']:.1f} ms"
                  if "train" in a else "")
               + f"; peak {a['peak_gb']:.2f} GB")
+    for key, r in lm_blocks.items():
+        if key != "launches":
+            print(f"[lm_blocks] {key}, rank 0 of 16 x 16 on {card}: "
+                  f"{r['ms']:.1f} ms per call (compute only, collectives "
+                  f"not run), peak {r['peak_gb']:.2f} GB (dry-run "
+                  f"{r['dryrun_peak_gb']:.2f} GB)")
     print(f"[dryrun] {dryrun['counts']['ok']} ok / "
           f"{dryrun['counts']['skip']} skip / {dryrun['counts']['error']} "
           f"fail")

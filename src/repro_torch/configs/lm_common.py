@@ -9,13 +9,14 @@ decode_32k (one serve step over a 32k KV cache, the cache donated);
 The sharding rules and specs are the reference's, as data: Megatron TP over
 ``model``, DP over ``pod`` x ``data``, KV caches split on the sequence over
 ``model``, MoE experts over ``model``, FSDP over ``data`` opt-in per arch.
-The port runs a plan's ``fn`` in its own layout (``models.lm``): the params
-whole on every rank, the batch-like arguments (tokens, batch, cache) this
-rank's block of the batch axes, the cache's sequence axis whole. A plan's
-``args`` are tensors on the ``meta`` device: a full-size model's shapes,
-nothing allocated. Its ``fn`` closes over the mesh (or None, the local
-path) and the config the plan set; callers run it on real tensors of any
-batch the mesh divides.
+A plan's ``fn`` takes on each rank exactly its block of every argument
+under the plan's ``in_specs`` and returns its block of every output under
+``out_specs`` (``models.lm``'s layout): ``layout`` is None for every LM
+cell, so ``local_specs()`` is ``in_specs``. A plan's ``args`` are tensors
+on the ``meta`` device: a full-size model's shapes, nothing allocated. Its
+``fn`` closes over the mesh (or None, the local path), the params' specs
+and the config the plan set; callers run it on the blocks of real tensors
+of any batch the mesh divides.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import LONG_500K_SKIP, ArchBundle, StepDef
 from repro_torch.distributed.mesh import psum
-from repro_torch.distributed.shardings import P, make_param_specs
+from repro_torch.distributed.shardings import P, make_param_specs, mentioned
 from repro_torch.models import lm
 
 
@@ -47,10 +48,10 @@ class CellPlan:
     # the train plan's (params, batch) -> (loss, gradients summed over the
     # batch axes): its fn's step before the optimizer's update
     grads: Any = None
-    # the specs of the arguments as ``fn`` takes them on a rank (the port's
-    # layout), where they differ from ``in_specs``: the params whole where
-    # the model has no mesh branch of its own (``whole``); None is
-    # ``in_specs``
+    # the specs of the arguments as ``fn`` takes them on a rank, where they
+    # differ from ``in_specs``: the params whole where the model has no
+    # sharded branch of its own (``whole``; DIN's and BERT4Rec's tables);
+    # None is ``in_specs``, as for every LM cell
     layout: Any = None
 
     def local_specs(self):
@@ -72,11 +73,6 @@ def whole(specs):
     """``specs`` with every leaf replicated: an argument each rank holds
     whole."""
     return tree.tree_map(lambda _: P(), specs)
-
-
-def _unsplit_seq(spec):
-    """A cache spec with its sequence axis (``model``) held whole."""
-    return P(*(None if e == "model" else e for e in spec))
 
 
 # ------------------------------------------------------------- LM shapes --
@@ -203,8 +199,8 @@ def serve_rules_2d(cfg: lm.LMConfig):
 
 def _cache_specs(cfg: lm.LMConfig, axes):
     """The KV cache's specs (``repro/configs/lm_common.py:199-204``): batch
-    over ``axes``, the sequence over ``model`` (GSPMD's split-K; the port's
-    decode keeps the sequence whole)."""
+    over ``axes``, the sequence over ``model`` (flash-decoding's split-K,
+    ``models.attention.decode_attention_split``)."""
     if cfg.mla is not None:
         return {"c": P(None, axes, "model", None),
                 "kr": P(None, axes, "model", None)}
@@ -220,12 +216,18 @@ def _batch_specs(batch, axes):
     return tree.tree_map(lambda x: P(axes, *([None] * (x.ndim - 1))), batch)
 
 
-def _data_parallel_sum(grads: list, mesh, axes) -> list:
-    """Each gradient summed over the batch axes: after a backward of
-    ``lm``'s mesh path, the one sum left (``models.lm``)."""
+def _data_parallel_sum(grads: list, specs: list, mesh, axes) -> list:
+    """Each gradient block summed over the batch axes its spec leaves out:
+    after a backward of ``lm``'s mesh path, the one sum left
+    (``models.lm``). A dim the spec shards over a batch axis (FSDP, the 2D
+    serving layout) was summed over it by the backward of its gather."""
     if mesh is None:
         return grads
-    return [psum(g, mesh, axes) for g in grads]
+    out = []
+    for g, spec in zip(grads, specs, strict=True):
+        left = tuple(a for a in axes if a not in mentioned(spec))
+        out.append(psum(g, mesh, left) if left else g)
+    return out
 
 
 def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
@@ -272,6 +274,9 @@ def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
     else:
         b_specs = _batch_specs(batch, axes)
 
+    specs = p_specs if mesh is not None else None
+    update = opt.on_blocks(mesh, p_specs, o_specs)
+
     def loss_and_grads(params, batch):
         leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
         p = tree.unflatten(params, leaves)
@@ -279,24 +284,24 @@ def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
                   if microbatch else [batch])
         loss, grads = None, None
         for mb in chunks:
-            part = lm.train_loss(p, mb, cfg, mesh) / len(chunks)
+            part = lm.train_loss(p, mb, cfg, mesh, specs) / len(chunks)
             g = torch.autograd.grad(part, leaves, materialize_grads=True)
             loss = part.detach() if loss is None else loss + part.detach()
             grads = list(g) if grads is None else [
                 a + b for a, b in zip(grads, g, strict=True)]
-        grads = _data_parallel_sum(grads, mesh, axes)
+        grads = _data_parallel_sum(grads, tree.flatten_up_to(params, p_specs),
+                                   mesh, axes)
         return loss, tree.unflatten(params, grads)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch)
-        params, opt_state = opt.update(grads, opt_state, params)
+        params, opt_state = update(grads, opt_state, params)
         return params, opt_state, loss
 
     return CellPlan(fn=train_step, args=(params, opt_state, batch),
                     in_specs=(p_specs, o_specs, b_specs),
                     out_specs=(p_specs, o_specs, P()),
-                    donate=(0, 1), grads=loss_and_grads,
-                    layout=(whole(p_specs), whole(o_specs), b_specs))
+                    donate=(0, 1), grads=loss_and_grads)
 
 
 def build_decode_plan(bundle: ArchBundle, mesh, multi_pod: bool,
@@ -322,15 +327,15 @@ def build_decode_plan(bundle: ArchBundle, mesh, multi_pod: bool,
     c_specs = _cache_specs(cfg, axes)
     full = shp["seq"] - 1     # static position: cache is full but one slot
 
+    specs = p_specs if mesh is not None else None
+
     def serve_step(params, cache, tokens, length: int = full):
-        return lm.decode_step(params, cache, tokens, length, cfg, mesh)
+        return lm.decode_step(params, cache, tokens, length, cfg, mesh, specs)
 
     return CellPlan(fn=serve_step, args=(params, cache, tokens),
                     in_specs=(p_specs, c_specs, P(axes)),
                     out_specs=(P(axes, "model"), c_specs),
-                    donate=(1,),
-                    layout=(whole(p_specs),
-                            tree.tree_map(_unsplit_seq, c_specs), P(axes)))
+                    donate=(1,))
 
 
 def build_prefill_plan(bundle: ArchBundle, mesh, multi_pod: bool,
@@ -349,13 +354,14 @@ def build_prefill_plan(bundle: ArchBundle, mesh, multi_pod: bool,
     p_specs = make_param_specs(params, serve_rules or bundle.param_rules)
     c_specs = _cache_specs(cfg, axes)
 
+    specs = p_specs if mesh is not None else None
+
     def prefill_step(params, tokens):
-        return lm.prefill(params, tokens, cfg, mesh)
+        return lm.prefill(params, tokens, cfg, mesh, specs)
 
     return CellPlan(fn=prefill_step, args=(params, tokens),
                     in_specs=(p_specs, P(axes, None)),
-                    out_specs=(P(axes, "model"), c_specs),
-                    layout=(whole(p_specs), P(axes, None)))
+                    out_specs=(P(axes, "model"), c_specs))
 
 
 def lm_model_flops(cfg: lm.LMConfig, n_active: float, shape: str) -> float:

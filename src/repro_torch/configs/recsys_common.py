@@ -13,8 +13,8 @@ blocks as the reference's ``shard_map`` bodies do: the tables row-sharded
 over ``model`` with the masked-psum SLS, the ``rank_of`` hash tables
 sharded beside them and consulted through the two-phase translation
 (``models.dlrm``). The models without a mesh branch of their own (DIN,
-BERT4Rec, GraphSAGE) hold their params whole on every rank, as the LM
-does, where GSPMD shards the reference's item tables: each rank runs the
+BERT4Rec, GraphSAGE) hold their params whole on every rank, where GSPMD
+shards the reference's item tables: each rank runs the
 model on its block of the batch, its loss is the whole batch's
 (``data_parallel_mean``), and the gradients are summed as
 ``shard_map(check_vma=False)`` sums them (``shardings.sync_grads``).

@@ -24,13 +24,20 @@ output's cotangent by the size of the axes its spec leaves out
 (``out_boundary``) and sums an input's cotangent over them
 (``shardings.sync_grads``); gradients in the port follow the same rules.
 
-The LM's regions keep one more layout outside them (``models.lm``): every
-rank holds its batch rows in full over the other axes and computes there
-as its neighbours do. ``in_boundary`` is ``sync_grads``' rule inside the
-graph, for a tensor such a region reads (its cotangent summed over the
-axes that replicate it), and ``gather_blocks``/``own_block`` rejoin and
-leave that layout along a dim (an ``all_gather`` whose cotangent is the
-rank's own block, and its transpose).
+The LM's Megatron tensor parallelism (``models.lm``) keeps its
+activations replicated over ``model``, each rank's cotangent of them the
+whole one, and uses the pair of collectives that layout needs:
+``in_boundary`` at a column-parallel input (the identity, its cotangent
+summed over the axes: ``sync_grads``' rule inside the graph) and
+``reduce_from`` at a row-parallel output (a ``psum`` whose cotangent goes
+through unchanged, the transpose ``jax.grad`` takes of a ``psum`` whose
+result every rank then uses alike). ``pmax`` is a detached ``pmax`` with
+no gradient, the stable shift of a sharded logsumexp.
+``gather_blocks``/``own_block`` rejoin and leave that layout along a dim
+(an ``all_gather`` whose cotangent is the rank's own block, and its
+transpose), and ``respec`` moves a block from one spec to another (an
+``all_gather`` where the old spec shards a dim the new one does not, a
+plain cut where the new one shards it).
 
 ``init`` starts the process group explicitly: NCCL for ``cuda`` (the
 default), gloo only when the caller asks for the CPU, and for ``meta`` the
@@ -359,6 +366,35 @@ def in_boundary(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
         else x
 
 
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axes`` (a row-parallel product's partial
+    sums), its cotangent passed through unchanged: every rank uses the sum
+    alike and holds its whole cotangent (Megatron's ``g``; ``in_boundary``
+    is its ``f``)."""
+    return _ReduceFrom.apply(x, mesh, mesh.axes(axes))
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``jax.lax.pmax`` of ``x`` detached, with no gradient: the shift that
+    keeps a logsumexp over blocks stable, which changes no value."""
+    group, _ = mesh.group(axes)
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    mesh.calls["all_reduce"] += 1
+    _observe("all_reduce", mesh, axes, x)
+    return out
+
+
 def _chunk(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     n, i = mesh.axis_size(axes), mesh.axis_index(axes)
     if x.shape[dim] % n:
@@ -427,3 +463,21 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs: PartitionSpec):
         return out_boundary(f(*blocks), mesh, out_specs)
 
     return fn
+
+
+def respec(x: torch.Tensor, mesh: Mesh, have, want) -> torch.Tensor:
+    """The block under spec ``want`` of the array whose block under
+    ``have`` is ``x``, dim by dim: an entry of ``have`` that ``want`` lacks
+    is gathered (``all_gather``: its cotangent summed over those axes, each
+    rank's block of it kept), an entry of ``want`` that ``have`` lacks is
+    cut (a slice: its cotangent is zero off the rank's block), the gathers
+    first; a dim the two shard over other axes is gathered, then cut."""
+    pairs = [(have[i] if i < len(have) else None,
+              want[i] if i < len(want) else None) for i in range(x.ndim)]
+    for i, (h, w) in enumerate(pairs):
+        if h != w and h is not None:
+            x = all_gather(x, mesh, h, dim=i)
+    for i, (h, w) in enumerate(pairs):
+        if h != w and w is not None:
+            x = _chunk(x, mesh, w, i)
+    return x

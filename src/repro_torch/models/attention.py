@@ -29,11 +29,19 @@ iteration over such a chunk adds exact zeros (``exp(-1e30 - m) = 0`` with
 ``m`` finite), so the result is the same.
 
 ``decode_attention`` is the single-token serve path over a KV cache.
+Under a mesh the cache's sequence is split over ``model`` (the reference's
+cache specs, ``configs.lm_common._cache_specs``): ``write_slot`` writes on
+the rank whose block holds the slot, and ``decode_attention_split``
+attends over each rank's block and combines the blocks over the axis
+(flash-decoding's split-K: the max, the sum and the PV product each
+reduced once).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.mesh import pmax, reduce_from
 
 NEG_INF = -1e30
 
@@ -241,13 +249,58 @@ def flash_attention(q, k, v, causal: bool = True,
                                 kv_chunk, scale)
 
 
-def write_slot(cache: torch.Tensor, new: torch.Tensor, length) -> None:
+def write_slot(cache: torch.Tensor, new: torch.Tensor, length,
+               seq_len: int | None = None, start: int = 0) -> None:
     """Write ``new`` (B, 1, ...) into slot ``length`` of ``cache`` (B, S,
     ...) in place, the slot clamped into ``[0, S - 1]`` as
     ``jax.lax.dynamic_update_slice_in_dim`` clamps its start: a write at or
-    past the end lands in the last slot."""
-    slot = min(max(int(length), 0), cache.shape[1] - 1)
-    cache[:, slot:slot + 1] = new.to(cache.dtype)
+    past the end lands in the last slot.
+
+    ``cache`` may be the block of slots ``[start, start + S_block)`` of a
+    cache of ``seq_len`` slots (its sequence split over ranks): the slot is
+    clamped into the whole cache and written only where the block holds
+    it."""
+    n = cache.shape[1] if seq_len is None else seq_len
+    slot = min(max(int(length), 0), n - 1) - start
+    if 0 <= slot < cache.shape[1]:
+        cache[:, slot:slot + 1] = new.to(cache.dtype)
+
+
+def split_softmax(logits: torch.Tensor, valid: torch.Tensor, mesh, axis,
+                  dtype) -> torch.Tensor:
+    """``softmax(where(valid, logits, NEG_INF))`` in float32 over the last
+    dim, whose keys are split over ``axis`` (each rank holds its block),
+    rounded to ``dtype``: the max and the sum reduced over the axis (on
+    one rank, ``decode_attention``'s softmax)."""
+    logits = torch.where(valid, logits.float(), NEG_INF)
+    if mesh.axis_size(axis) == 1:
+        return torch.softmax(logits, dim=-1).to(dtype)
+    m = pmax(logits.amax(-1, keepdim=True), mesh, axis)
+    p = torch.exp(logits - m)
+    return (p / reduce_from(p.sum(-1, keepdim=True), mesh, axis)).to(dtype)
+
+
+def decode_attention_split(q, k_cache, v_cache, length, mesh,
+                           axis: str = "model", scale: float | None = None):
+    """``decode_attention`` over a cache whose sequence is split over
+    ``axis``: ``k_cache``/``v_cache`` (B, S / n, KV, dh) are this rank's
+    block of slots, ``q`` (B, H, dh) every head, ``length`` the valid slots
+    of the whole cache. Each rank's PV product over its block is summed
+    over the axis; every rank returns the whole (B, H, dh)."""
+    b, s, kv, dh = k_cache.shape
+    h = q.shape[1]
+    n_rep = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    qr = q.reshape(b, kv, n_rep, dh).to(dt)
+    logits = torch.einsum("bknd,bskd->bkns", qr, k_cache.to(dt)) * scale
+    n_valid = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    pos = mesh.axis_index(axis) * s + torch.arange(s, device=q.device)
+    valid = (pos[None, :] < n_valid)[:, None, None, :]
+    w = split_softmax(logits, valid, mesh, axis, q.dtype)
+    dt = torch.promote_types(w.dtype, v_cache.dtype)
+    out = torch.einsum("bkns,bskd->bknd", w.to(dt), v_cache.to(dt))
+    return reduce_from(out, mesh, axis).reshape(b, h, dh)
 
 
 def decode_attention(q, k_cache, v_cache, length, scale: float | None = None):

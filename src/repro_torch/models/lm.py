@@ -18,35 +18,48 @@ non-reentrant), and ``remat_group`` checkpoints groups of layers with each
 layer inside checkpointed again.
 
 Entry points: ``init``, ``train_loss``, ``prefill``, ``decode_step``,
-each with the reference's ``mesh`` argument. ``mesh=None`` is the local
-path (the mesh fields of ``LMConfig`` have no effect there, as in the
-reference). Under a ``distributed.mesh.Mesh`` each ``torch.distributed``
-rank runs the reference's ``shard_map`` regions on its blocks:
+each with the reference's ``mesh`` argument and, under a mesh, ``specs``:
+the ``PartitionSpec`` of each param (``configs.lm_common``'s rules, the
+reference's ``in_specs``), whose block under it is what ``params`` holds.
+``mesh=None`` is the local path (the mesh fields of ``LMConfig`` have no
+effect there, as in the reference). Under a ``distributed.mesh.Mesh`` each
+``torch.distributed`` rank holds and computes its blocks, in the layout
+the reference's specs give GSPMD:
 
+- its rows of the batch (``cfg.batch_axes``: tokens, hidden states,
+  logits), the activations between blocks replicated over ``model``;
+- Megatron tensor parallelism over ``model``: the attention heads (GQA or
+  MLA), the FFN and the vocab split, a column-parallel product's input
+  through ``in_boundary`` and a row-parallel product's output summed by
+  ``reduce_from``. GQA's k/v columns cut a kv head where the kv heads do
+  not divide the axis, so a rank gathers the k/v weight columns (train,
+  prefill) or the new token's q/k/v (decode) to whole heads before
+  qk-norm and RoPE. MLA gathers its q and kv latents before their norms.
+  The vocab-parallel embedding is a masked local lookup summed over
+  ``model``; the logits stay vocab-sharded, and the loss takes its
+  logsumexp and the target's logit across the vocab blocks;
+- FSDP: a param whose spec also shards a dim over the batch axes (the
+  ``fsdp`` rules) is gathered over them inside its checkpointed layer, so
+  the gathered weights die with the layer and are gathered again in the
+  backward, whose reduce-scatter is those axes' data-parallel sum;
+- KV caches split on the sequence over ``model``: prefill returns each
+  rank's sequence block, decode writes the slot on the rank that holds it
+  and combines the ranks' partial attention (split-K,
+  ``models.attention.decode_attention_split``);
 - the MoE layers' expert parallelism where ``ep_axis`` is set
   (``moe_ffn_sharded``, or the 2D serving layout ``moe_ffn_2d`` with
-  ``ep_2d`` and ``ep_token_chunk``);
-- context-parallel attention where ``context_parallel`` is set and T
-  divides the ``model`` axis (the rank's T block of queries against all
-  keys);
+  ``ep_2d`` and ``ep_token_chunk``) on the blocks their region's in_specs
+  give;
+- context-parallel attention where ``context_parallel`` is set, the
+  attention is replicated over ``model`` (qwen2's rules) and T divides the
+  axis (the rank's T block of queries against all keys);
 - sequence sharding of the residual stream between layers with
   ``seq_shard`` (off with a cache, as in the reference).
 
-The reference leaves everything outside those regions to GSPMD. The port
-fixes one layout there: each rank holds its rows of the batch
-(``cfg.batch_axes``; tokens, caches, hidden states and logits), the same
-on every rank of the other axes, and the params whole; the dense parts run
-on those rows with the whole params, alike on each rank of ``model``.
-Megatron tensor parallelism of the dense parts is not ported (ROADMAP
-P9). A region cuts its blocks of params and activations by the
-reference's in_specs and rejoins the layout at its out_spec. Its
-boundaries carry the gradients: an input's cotangent is summed over the
-axes that replicate it (``distributed.mesh.in_boundary``), an output's is
-divided by them (``out_boundary``), and the context-parallel gather cuts
-its cotangent back to the rank's block (``gather_blocks``). So after a
-backward each rank holds the gradient of its own rows' share of the loss,
-the same on every rank of ``model``, and a sum over the batch axes (the
-data-parallel all-reduce) gives the reference's ``jax.grad``.
+Every rank's cotangent of a replicated activation is the whole one, so
+after a backward a param's gradient block is the rank's rows' share, and a
+sum over the batch axes its spec leaves out (``configs.lm_common``) gives
+the reference's ``jax.grad`` block.
 
 Token ids out of range are clamped (``embedding.layout.lookup``, the
 port's one contract), where the reference's ``jnp.take`` fills.
@@ -63,14 +76,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
-from repro_torch.distributed.mesh import (Mesh, gather_blocks, in_boundary,
-                                          out_boundary, own_block, psum)
-from repro_torch.distributed.shardings import P, NamedSharding
+from repro_torch.distributed.mesh import (Mesh, all_gather, gather_blocks,
+                                          in_boundary, out_boundary,
+                                          own_block, pmax, psum, reduce_from,
+                                          respec)
+from repro_torch.distributed.shardings import P, mentioned
 from repro_torch.embedding.layout import lookup
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import (decode_attention, flash_attention,
-                                          write_slot)
+from repro_torch.models.attention import (decode_attention,
+                                          decode_attention_split,
+                                          flash_attention, write_slot)
 from repro_torch.models.common import (apply_rope, make_generator,
                                        normal_init, rms_init, rms_norm,
                                        rope_angles, squared_relu)
@@ -121,11 +137,13 @@ class LMConfig:
         return self.d_head or self.d_model // self.n_heads
 
 
-def _check_mesh(mesh, cfg: LMConfig) -> None:
+def _check_mesh(mesh, cfg: LMConfig, specs=None) -> None:
     """A mesh is None or a ``Mesh`` whose axes are ``cfg.batch_axes`` and
-    ``model``, the layout's two kinds."""
+    ``model``, the layout's two kinds, with the params' ``specs``."""
     if mesh is None:
         return
+    if specs is None:
+        raise ValueError("under a mesh the LM needs the params' specs")
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a repro_torch.distributed.mesh.Mesh "
                         f"or None, not {type(mesh).__name__}")
@@ -133,6 +151,12 @@ def _check_mesh(mesh, cfg: LMConfig) -> None:
         raise ValueError(f"the LM's layout needs a mesh of the batch axes "
                          f"{cfg.batch_axes} and 'model'; this one has "
                          f"{mesh.axis_names}")
+    if cfg.context_parallel and any(
+            _tp(s) for name in ("dense_layers", "moe_layers")
+            if name in specs for s in tree.leaves(specs[name]["attn"])):
+        raise ValueError("context-parallel attention needs the attention "
+                         "replicated over 'model' (qwen2's rules); these "
+                         "specs split it")
 
 
 # ---------------------------------------------------------------- params --
@@ -228,11 +252,72 @@ def init(seed: int, cfg: LMConfig, dtype=torch.float32,
     return params
 
 
+# ---------------------------------------------------------------- layout --
+def _tp(spec) -> bool:
+    """Whether a block is cut over ``model`` (Megatron TP)."""
+    return spec is not None and "model" in mentioned(spec)
+
+
+def _megatron(spec):
+    """``spec`` with every entry but ``model``'s dropped: the block the
+    dense parts compute on once the FSDP axes are gathered."""
+    return P(*(e if e is not None and "model" in mentioned(P(e)) else None
+               for e in spec))
+
+
+def _layer_spec(specs):
+    """One layer's specs of stacked specs (the leading ``L`` entry
+    dropped)."""
+    return tree.tree_map(lambda sp: P(*tuple(sp)[1:]), specs)
+
+
+def _layer_blocks(p, s, cfg: LMConfig, mesh):
+    """One layer's blocks as its computation takes them, and their specs:
+    the FSDP axes gathered (``respec``), the MoE params at their region's
+    in_specs (whole where the MoE runs locally)."""
+    want = tree.tree_map(_megatron, s)
+    if "moe" in p:
+        want["moe"] = ((_moe_specs_2d(cfg) if cfg.ep_2d else _moe_specs(cfg))
+                       if cfg.ep_axis is not None
+                       else tree.tree_map(lambda _: P(), s["moe"]))
+    return (tree.tree_map(lambda a, h, w: respec(a, mesh, h, w), p, s, want),
+            want)
+
+
+def _local_heads(cfg: LMConfig, n: int) -> tuple[int, int, int]:
+    """Under TP over ``n`` ranks: the query heads a rank holds, the first
+    of the kv heads they read (per rank index, times the returned step)
+    and how many. A rank's heads must be whole and read whole kv groups,
+    or lie in one."""
+    h, rep = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    hl = h // n
+    if h % n or (hl % rep and rep % hl):
+        raise ValueError(f"{cfg.name}: {h} heads in groups of {rep} do not "
+                         f"split over {n} model ranks")
+    return hl, rep, max(1, hl // rep)
+
+
+def _seq_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along dim 1 over ``model`` (a cache's
+    sequence)."""
+    return respec(x, mesh, P(), P(None, "model"))
+
+
 # --------------------------------------------------------------- forward --
+def _rope(x, positions, theta: float, dh: int):
+    cos, sin = rope_angles(positions, dh, theta, x.dtype)
+    return apply_rope(x, cos[:, :, None], sin[:, :, None])
+
+
 def _rope_qk(q, k, positions, cfg: LMConfig):
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, q.dtype)
     return (apply_rope(q, cos[:, :, None], sin[:, :, None]),
             apply_rope(k, cos[:, :, None], sin[:, :, None]))
+
+
+def _proj(x, w, bias):
+    y = x @ w
+    return y if bias is None else y + bias
 
 
 def _qkv(p, x, cfg: LMConfig):
@@ -267,7 +352,50 @@ def _cp_attention(q, k, v, cfg: LMConfig, mesh):
     return gather_blocks(out, mesh, "model", 1)
 
 
-def _gqa_attention(p, x, cfg: LMConfig, positions, mesh=None):
+def _gqa_tp(p, x, cfg: LMConfig, positions, mesh, with_cache: bool):
+    """GQA with the heads over ``model``: the rank's query heads against
+    the kv heads they read, whose columns it gathers whole from the
+    ranks' k/v weight blocks (a block may cut a head, and qk-norm and
+    RoPE's rotate-half need all of it). The output projection is
+    row-parallel. With ``with_cache`` it also returns the rank's sequence
+    block of every kv head for the cache."""
+    b, t, _ = x.shape
+    dh = cfg.head_dim
+    hl, rep, nk = _local_heads(cfg, mesh.axis_size("model"))
+    k0 = mesh.axis_index("model") * hl // rep
+    w_k, w_v = (all_gather(p[w], mesh, "model", dim=1) for w in ("wk", "wv"))
+    b_k, b_v = (all_gather(p[w], mesh, "model") if w in p else None
+                for w in ("bk", "bv"))
+    cols = slice(k0 * dh, (k0 + nk) * dh)
+    xin = in_boundary(x, mesh, "model")
+    q = _proj(xin, p["wq"], p.get("bq")).reshape(b, t, hl, dh)
+    k = _proj(xin, w_k[:, cols], None if b_k is None else b_k[cols]) \
+        .reshape(b, t, nk, dh)
+    v = _proj(xin, w_v[:, cols], None if b_v is None else b_v[cols]) \
+        .reshape(b, t, nk, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, in_boundary(p["q_norm"]["gamma"], mesh, "model"))
+        k = rms_norm(k, in_boundary(p["k_norm"]["gamma"], mesh, "model"))
+    q, k = _rope_qk(q, k, positions, cfg)
+    out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    attn = reduce_from(out.reshape(b, t, hl * dh) @ p["wo"], mesh, "model")
+    if not with_cache:
+        return attn, None
+    xs, pos = _seq_block(x, mesh), _seq_block(positions, mesh)
+    kc = _proj(xs, w_k, b_k).reshape(b, xs.shape[1], cfg.n_kv_heads, dh)
+    vc = _proj(xs, w_v, b_v).reshape(b, xs.shape[1], cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        kc = rms_norm(kc, p["k_norm"]["gamma"])
+    return attn, (_rope(kc, pos, cfg.rope_theta, dh), vc)
+
+
+def _gqa_attention(p, x, cfg: LMConfig, positions, mesh=None, tp=False,
+                   with_cache=False):
+    """GQA over x (B,T,D): returns (out, the KV for the cache); under a
+    mesh that KV is the rank's sequence block."""
+    if tp:
+        return _gqa_tp(p, x, cfg, positions, mesh, with_cache)
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
@@ -277,13 +405,22 @@ def _gqa_attention(p, x, cfg: LMConfig, positions, mesh=None):
     else:
         out = flash_attention(q, k, v, causal=True,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return out.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"], (k, v)
+    kv = (k, v)
+    if mesh is not None and with_cache:
+        kv = (_seq_block(k, mesh), _seq_block(v, mesh))
+    return out.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"], kv
 
 
-def _dense_ffn(p, x, cfg: LMConfig):
+def _dense_ffn(p, x, cfg: LMConfig, mesh=None, tp=False):
+    """The dense FFN; with ``tp`` its F over ``model`` (the input
+    column-parallel, the output row-parallel)."""
+    if tp:
+        x = in_boundary(x, mesh, "model")
     if cfg.act == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return squared_relu(x @ p["w_in"]) @ p["w_out"]
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        y = squared_relu(x @ p["w_in"]) @ p["w_out"]
+    return reduce_from(y, mesh, "model") if tp else y
 
 
 def _moe_specs(cfg: LMConfig) -> dict:
@@ -319,44 +456,55 @@ def _moe_specs_2d(cfg: LMConfig) -> dict:
 
 def _moe_block(p, x, cfg: LMConfig, mesh):
     """The MoE FFN (``repro/models/lm.py:247-264``): local without a mesh or
-    ``ep_axis``, else the rank's blocks of ``p`` by the specs through
-    ``moe_ffn_2d`` (``ep_2d``) or ``moe_ffn_sharded`` on its rows ``x``.
-    Each cut's cotangent is summed over ``model``, whose ranks share the
-    work, and the output's divided by it, since all of them use it."""
+    ``ep_axis``, else ``p`` holds the rank's blocks by the region's specs
+    (``_layer_blocks``), run through ``moe_ffn_2d`` (``ep_2d``) or
+    ``moe_ffn_sharded`` on its rows ``x``. The ranks of ``model`` share the
+    work: the cotangents of ``x`` and of the router (whole on each rank)
+    are summed over it, and the output's divided by it, since all of them
+    use it."""
     if cfg.ep_axis is None or mesh is None:
         return moe_lib.moe_ffn(p, x, cfg.moe)
     specs = _moe_specs_2d(cfg) if cfg.ep_2d else _moe_specs(cfg)
-    blocks = tree.tree_map(
-        lambda a, s: NamedSharding(mesh, s).shard(
-            in_boundary(a, mesh, "model")), p, specs)
+    p = tree.tree_map(lambda a, sp: a if _tp(sp)
+                      else in_boundary(a, mesh, "model"), p, specs)
     x = in_boundary(x, mesh, "model")
     if cfg.ep_2d:
-        y = moe_lib.moe_ffn_2d(blocks, x, cfg.moe, model_axis=cfg.ep_axis,
+        y = moe_lib.moe_ffn_2d(p, x, cfg.moe, model_axis=cfg.ep_axis,
                                data_axis="data", batch_axes=cfg.batch_axes,
                                token_chunk=cfg.ep_token_chunk, mesh=mesh)
     else:
-        y = moe_lib.moe_ffn_sharded(blocks, x, cfg.moe,
-                                    axis_name=cfg.ep_axis, mesh=mesh)
+        y = moe_lib.moe_ffn_sharded(p, x, cfg.moe, axis_name=cfg.ep_axis,
+                                    mesh=mesh)
     return out_boundary(y, mesh, P(cfg.batch_axes, None, None))
 
 
-def _ffn(p, h, cfg: LMConfig, mesh):
+def _ffn(p, s, h, cfg: LMConfig, mesh):
     if "moe" in p:
         return _moe_block(p["moe"], h, cfg, mesh)
-    return _dense_ffn(p["ffn"], h, cfg)
+    tp = mesh is not None and _tp(s["ffn"]["w_down" if "w_down" in p["ffn"]
+                                           else "w_out"])
+    return _dense_ffn(p["ffn"], h, cfg, mesh, tp)
 
 
-def _layer_fwd(p, x, cfg: LMConfig, positions, mesh=None):
-    """One block; returns (x, its KV for the cache). MLA takes no mesh,
-    as in the reference."""
+def _layer_fwd(p, x, cfg: LMConfig, positions, mesh=None, s=None,
+               with_cache: bool = False):
+    """One block; returns (x, its KV for the cache: under a mesh the
+    rank's sequence block). Under a mesh ``p`` holds the layer's blocks
+    under ``s``, gathered here over the FSDP axes."""
+    if mesh is not None:
+        p, s = _layer_blocks(p, s, cfg, mesh)
     if cfg.mla is not None:
         attn, kv = mla_lib.mla_attention(
-            p["attn"], rms_norm(x, p["ln1"]["gamma"]), cfg.mla, positions)
+            p["attn"], rms_norm(x, p["ln1"]["gamma"]), cfg.mla, positions,
+            mesh=mesh)
+        if mesh is not None and with_cache:
+            kv = (_seq_block(kv[0], mesh), _seq_block(kv[1], mesh))
     else:
-        attn, kv = _gqa_attention(p["attn"], rms_norm(x, p["ln1"]["gamma"]),
-                                  cfg, positions, mesh)
+        attn, kv = _gqa_attention(
+            p["attn"], rms_norm(x, p["ln1"]["gamma"]), cfg, positions, mesh,
+            mesh is not None and _tp(s["attn"]["wq"]), with_cache)
     x = x + attn
-    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh), kv
+    return x + _ffn(p, s, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh), kv
 
 
 def _layer(stacked, i: int):
@@ -364,7 +512,7 @@ def _layer(stacked, i: int):
 
 
 def _scan_layers(stacked, x, cfg: LMConfig, positions, mesh=None,
-                 with_cache: bool = False):
+                 with_cache: bool = False, specs=None):
     """The layers of ``stacked`` in order over x; returns (x, [KV per
     layer]) with ``with_cache``, else (x, None).
 
@@ -375,11 +523,12 @@ def _scan_layers(stacked, x, cfg: LMConfig, positions, mesh=None,
     n_layers = tree.leaves(stacked)[0].shape[0]
     remat = torch.is_grad_enabled() and not with_cache
     sp = cfg.seq_shard and mesh is not None and not with_cache
+    s = None if specs is None else _layer_spec(specs)
 
     def body(carry, i):
         if sp:
             carry = gather_blocks(carry, mesh, "model", 1)
-        y, _ = _layer_fwd(_layer(stacked, i), carry, cfg, positions, mesh)
+        y, _ = _layer_fwd(_layer(stacked, i), carry, cfg, positions, mesh, s)
         return own_block(y, mesh, "model", 1) if sp else y
 
     def step(carry, i):
@@ -390,7 +539,8 @@ def _scan_layers(stacked, x, cfg: LMConfig, positions, mesh=None,
     if with_cache:
         kvs = []
         for i in range(n_layers):
-            x, kv = _layer_fwd(_layer(stacked, i), x, cfg, positions, mesh)
+            x, kv = _layer_fwd(_layer(stacked, i), x, cfg, positions, mesh,
+                               s, with_cache=True)
             kvs.append(kv)
         return x, kvs
     if sp:
@@ -415,35 +565,100 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, device=device)[None].expand(b, t)
 
 
+def _embed(params, tokens, mesh=None, specs=None):
+    """The embedding rows of ``tokens``. Under a mesh the vocab is split
+    over ``model``: each rank looks up the ids in its block (the global id
+    clamped first, the port's contract, then masked to the block) and the
+    rows are summed over ``model``."""
+    if mesh is None:
+        return lookup(params["embed"], tokens)
+    s = specs["embed"]
+    table = respec(params["embed"], mesh, s, _megatron(s))
+    if not _tp(s):
+        return lookup(table, tokens)
+    n_loc = table.shape[0]
+    ids = tokens.clamp(0, n_loc * mesh.axis_size("model") - 1) \
+        - mesh.axis_index("model") * n_loc
+    rows = lookup(table, ids)
+    rows = torch.where(((ids >= 0) & (ids < n_loc))[..., None], rows, 0)
+    return reduce_from(rows, mesh, "model")
+
+
+def _head(params, mesh, specs):
+    """(the head's block (D, V / n) over the vocab, FSDP axes gathered;
+    whether the vocab is split over more than one ``model`` rank)."""
+    name = "embed" if "head" not in params else "head"
+    s = specs[name]
+    w = respec(params[name], mesh, s, _megatron(s))
+    return ((w.T if name == "embed" else w),
+            _tp(s) and mesh.axis_size("model") > 1)
+
+
 def backbone(params, tokens, cfg: LMConfig, mesh=None, positions=None,
-             with_cache: bool = False):
+             with_cache: bool = False, specs=None):
     """tokens (B,T) -> final hidden (B,T,D) [+ the KV of every layer].
-    Under a mesh, ``tokens`` are this rank's rows (module docstring)."""
-    _check_mesh(mesh, cfg)
+    Under a mesh, ``tokens`` are this rank's rows and ``params`` its blocks
+    under ``specs`` (module docstring)."""
+    _check_mesh(mesh, cfg, specs)
     b, t = tokens.shape
     if positions is None:
         positions = _positions(b, t, tokens.device)
-    x = lookup(params["embed"], tokens)
+    x = _embed(params, tokens, mesh, specs)
     caches = []
     for name in ("dense_layers", "moe_layers"):
         if name in params:
             x, kv = _scan_layers(params[name], x, cfg, positions, mesh,
-                                 with_cache)
+                                 with_cache,
+                                 None if specs is None else specs[name])
             caches.extend(kv or [])
     x = rms_norm(x, params["final_norm"]["gamma"])
     return (x, caches) if with_cache else x
 
 
-def logits_fn(params, hidden, cfg: LMConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return hidden @ head
+def logits_fn(params, hidden, cfg: LMConfig, mesh=None, specs=None):
+    """hidden (..., D) -> logits (..., V); under a mesh the rank's vocab
+    block (..., V / n) where the head splits the vocab over ``model``."""
+    if mesh is None:
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return hidden @ head
+    head, tp = _head(params, mesh, specs)
+    return (in_boundary(hidden, mesh, "model") if tp else hidden) @ head
 
 
-def _ce_sum(params, h, tgt, w, cfg: LMConfig):
-    logits = logits_fn(params, h, cfg).float()
-    logp = torch.log_softmax(logits, -1)
+def _ce_sum(params, cfg: LMConfig, h, tgt, w):
+    """One chunk's weighted NLL sum (the params, not the head, go through
+    the checkpoint, so that it saves no vocab-sized tensor)."""
+    return _nll_sum(logits_fn(params, h, cfg), tgt, w)
+
+
+def _nll_sum(logits, tgt, w):
+    logp = torch.log_softmax(logits.float(), -1)
     nll = -logp.gather(-1, tgt[..., None])[..., 0]
     return (nll * w).sum()
+
+
+def _ce_sum_whole(head, h, tgt, w):
+    """``_ce_sum`` under a mesh whose ``model`` axis does not split the
+    vocab (the head's FSDP axes gathered)."""
+    return _nll_sum(h @ head, tgt, w)
+
+
+def _ce_sum_sharded(head, mesh, h, tgt, w):
+    """``_ce_sum`` with the head's vocab split over ``model``: the
+    logsumexp and the target's logit across the ranks' vocab blocks (a
+    max, a sum and the target's logit summed over ``model``; the target
+    clamped into the vocab as an id is)."""
+    logits = (in_boundary(h, mesh, "model") @ head).float()
+    n_loc = logits.shape[-1]
+    m = pmax(logits.amax(-1, keepdim=True), mesh, "model")
+    lse = m[..., 0] + torch.log(reduce_from(
+        torch.exp(logits - m).sum(-1), mesh, "model"))
+    local = tgt.long().clamp(0, n_loc * mesh.axis_size("model") - 1) \
+        - mesh.axis_index("model") * n_loc
+    own = (local >= 0) & (local < n_loc)
+    tl = logits.gather(-1, local.clamp(0, n_loc - 1)[..., None])[..., 0]
+    tl = reduce_from(torch.where(own, tl, 0.0), mesh, "model")
+    return ((lse - tl) * w).sum()
 
 
 def chunked_ce(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
@@ -456,13 +671,15 @@ def chunked_ce(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
     checkpointed, so the backward recomputes it instead of keeping (B, T,
     V) logits.
     """
-    acc, total = _ce_terms(params, hidden, targets, cfg, t_chunk, weights)
+    acc, total = _ce_terms(_ce_sum, (params, cfg), hidden, targets, t_chunk,
+                           weights)
     return acc / total.clamp_min(1.0)
 
 
-def _ce_terms(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
+def _ce_terms(ce_sum, args, hidden, targets, t_chunk: int = 512,
               weights=None):
-    """``chunked_ce``'s weighted NLL sum and its weights' sum."""
+    """``chunked_ce``'s weighted NLL sum and its weights' sum, each chunk's
+    sum ``ce_sum(*args, h, targets, weights)``."""
     b, t, _ = hidden.shape
     if weights is None:
         weights = torch.ones((b, t), dtype=torch.float32,
@@ -474,54 +691,83 @@ def _ce_terms(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,
         weights = F.pad(weights, (0, pad))
     acc = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, t + pad, t_chunk):
-        args = (params, hidden[:, lo:lo + t_chunk],
-                targets[:, lo:lo + t_chunk], weights[:, lo:lo + t_chunk], cfg)
-        acc = acc + (checkpoint(_ce_sum, *args, use_reentrant=False)
-                     if torch.is_grad_enabled() else _ce_sum(*args))
+        chunk = (*args, hidden[:, lo:lo + t_chunk],
+                 targets[:, lo:lo + t_chunk], weights[:, lo:lo + t_chunk])
+        acc = acc + (checkpoint(ce_sum, *chunk, use_reentrant=False)
+                     if torch.is_grad_enabled() else ce_sum(*chunk))
     return acc, weights.sum()
 
 
-def _mean_nll(params, hidden, targets, cfg: LMConfig, mesh):
+def _mean_nll(params, hidden, targets, cfg: LMConfig, mesh, specs):
     """``chunked_ce`` over the whole batch: under a mesh, each rank's rows
-    over every rank's weight, summed over the batch axes. The sum's
-    cotangent is divided over the batch axes (``out_boundary``), so that
-    each rank's backward is its own rows' share of the mean."""
+    over every rank's weight, summed over the batch axes, with the vocab
+    split over ``model`` where the head splits it. The sum's cotangent is
+    divided over the batch axes (``out_boundary``), so that each rank's
+    backward is its own rows' share of the mean."""
     if mesh is None:
         return chunked_ce(params, hidden, targets, cfg)
-    acc, total = _ce_terms(params, hidden, targets, cfg)
+    head, tp = _head(params, mesh, specs)
+    acc, total = (_ce_terms(_ce_sum_sharded, (head, mesh), hidden, targets)
+                  if tp else _ce_terms(_ce_sum_whole, (head,), hidden,
+                                       targets))
     share = acc / psum(total, mesh, cfg.batch_axes).clamp_min(1.0)
     return out_boundary(psum(share, mesh, cfg.batch_axes), mesh, P("model"))
 
 
-def train_loss(params, batch, cfg: LMConfig, mesh=None):
+def _mtp_proj(params, x, mesh, specs):
+    """MTP's (2D, D) projection of x; under a mesh column-parallel over
+    ``model`` where its spec splits it, the rank's output columns rejoined
+    over ``model``."""
+    w = params["mtp"]["proj"]
+    if mesh is None:
+        return x @ w
+    s = specs["mtp"]["proj"]
+    w = respec(w, mesh, s, _megatron(s))
+    if not _tp(s):
+        return x @ w
+    return gather_blocks(in_boundary(x, mesh, "model") @ w, mesh, "model",
+                         -1)
+
+
+def train_loss(params, batch, cfg: LMConfig, mesh=None, specs=None):
     """batch: {tokens (B,T), targets (B,T)}; mean next-token CE (+ MTP).
 
-    Under a mesh ``batch`` holds this rank's rows; the loss is the whole
-    batch's mean on every rank, and its gradient the rank's share (module
-    docstring)."""
+    Under a mesh ``batch`` holds this rank's rows and ``params`` its blocks
+    under ``specs``; the loss is the whole batch's mean on every rank, and
+    its gradient the rank's share (module docstring)."""
     tokens, targets = batch["tokens"], batch["targets"]
-    hidden = backbone(params, tokens, cfg, mesh)
-    loss = _mean_nll(params, hidden, targets, cfg, mesh)
+    hidden = backbone(params, tokens, cfg, mesh, specs=specs)
+    loss = _mean_nll(params, hidden, targets, cfg, mesh, specs)
     if cfg.mtp and "mtp" in params:
         # predict t+2: combine h_t with emb(t+1), one extra block.
-        emb_next = lookup(params["embed"], tokens)
-        h = torch.cat([hidden[:, :-1], emb_next[:, 1:]], -1) \
-            @ params["mtp"]["proj"]
+        emb_next = _embed(params, tokens, mesh, specs)
+        h = _mtp_proj(params, torch.cat([hidden[:, :-1], emb_next[:, 1:]],
+                                        -1), mesh, specs)
         h = rms_norm(h, params["mtp"]["norm"]["gamma"])
         b, tm1, _ = h.shape
         h, _ = _layer_fwd(params["mtp"]["layer"], h, cfg,
-                          _positions(b, tm1, h.device), mesh)
+                          _positions(b, tm1, h.device), mesh,
+                          None if specs is None else specs["mtp"]["layer"])
         # position i of h fuses hidden_i with emb(token_{i+1}) and predicts
         # token_{i+2} = targets[i+1], for i in [0, T-2].
         loss = loss + cfg.mtp_weight * _mean_nll(
-            params, h, targets[:, 1:], cfg, mesh)
+            params, h, targets[:, 1:], cfg, mesh, specs)
     return loss
 
 
 # ---------------------------------------------------------------- decode --
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", mesh=None) -> dict:
+    """Zero caches of ``batch`` rows and ``max_len`` slots; under a mesh
+    this rank's block of them (its rows over ``cfg.batch_axes``, its
+    sequence block over ``model``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        nb, ns = mesh.axis_size(cfg.batch_axes), mesh.axis_size("model")
+        if batch % nb or max_len % ns:
+            raise ValueError(f"a cache of {batch} x {max_len} does not "
+                             f"split over {nb} x {ns} ranks")
+        batch, max_len = batch // nb, max_len // ns
     if cfg.mla is not None:
         return {
             "c": torch.zeros((cfg.n_layers, batch, max_len,
@@ -535,14 +781,58 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _decode_layer(p, x, cache_slice, length, cfg: LMConfig, mesh=None):
+def _gqa_decode_split(p, h, cache, length, cfg: LMConfig, mesh, tp: bool):
+    """One token's GQA over a cache whose sequence is split over
+    ``model``: every rank needs the token's q, k and v of every head (it
+    attends over its slots for all of them), so under TP the rank's
+    column blocks are gathered to whole heads; the slot's owner writes it,
+    the ranks' partial attention is combined (split-K), and under TP each
+    rank keeps its heads for the row-parallel output projection."""
+    b = h.shape[0]
+    dh, n = cfg.head_dim, mesh.axis_size("model")
+    pos = torch.full((b, 1), int(length), dtype=torch.int32, device=h.device)
+    if tp:
+        hl = _local_heads(cfg, n)[0]
+        q = _proj(h, p["wq"], p.get("bq")).reshape(b, 1, hl, dh)
+        k, v = (gather_blocks(_proj(h, p[w], p.get(bb)), mesh, "model", -1)
+                .reshape(b, 1, cfg.n_kv_heads, dh)
+                for w, bb in (("wk", "bk"), ("wv", "bv")))
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"]["gamma"])
+            k = rms_norm(k, p["k_norm"]["gamma"])
+        q, k = _rope_qk(q, k, pos, cfg)
+        q = gather_blocks(q, mesh, "model", 2)
+    else:
+        q, k, v = _qkv(p, h, cfg)
+        q, k = _rope_qk(q, k, pos, cfg)
+    s_loc = cache["k"].shape[1]
+    start = mesh.axis_index("model") * s_loc
+    write_slot(cache["k"], k, length, s_loc * n, start)
+    write_slot(cache["v"], v, length, s_loc * n, start)
+    out = decode_attention_split(q[:, 0], cache["k"], cache["v"],
+                                 int(length) + 1, mesh)
+    if not tp:
+        return out.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
+    out = own_block(out, mesh, "model", 1)
+    return reduce_from(out.reshape(b, 1, -1) @ p["wo"], mesh, "model")
+
+
+def _decode_layer(p, x, cache_slice, length, cfg: LMConfig, mesh=None,
+                  s=None):
     """x (B,1,D) one layer; writes the token's KV into ``cache_slice`` (one
-    layer's cache) in place and returns x."""
+    layer's cache; under a mesh the rank's block) in place and returns
+    x."""
+    if mesh is not None:
+        p, s = _layer_blocks(p, s, cfg, mesh)
     b = x.shape[0]
     h = rms_norm(x, p["ln1"]["gamma"])
     if cfg.mla is not None:
         attn, _, _ = mla_lib.mla_decode(p["attn"], h, cache_slice["c"],
-                                        cache_slice["kr"], length, cfg.mla)
+                                        cache_slice["kr"], length, cfg.mla,
+                                        mesh=mesh)
+    elif mesh is not None:
+        attn = _gqa_decode_split(p["attn"], h, cache_slice, length, cfg,
+                                 mesh, _tp(s["attn"]["wq"]))
     else:
         q, k, v = _qkv(p["attn"], h, cfg)
         pos = torch.full((b, 1), int(length), dtype=torch.int32,
@@ -555,10 +845,11 @@ def _decode_layer(p, x, cache_slice, length, cfg: LMConfig, mesh=None):
         attn = out.reshape(b, 1, cfg.n_heads * cfg.head_dim) \
             @ p["attn"]["wo"]
     x = x + attn
-    return x + _ffn(p, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh)
+    return x + _ffn(p, s, rms_norm(x, p["ln2"]["gamma"]), cfg, mesh)
 
 
-def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
+def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None,
+                specs=None):
     """One serve step: tokens (B,) int, ``length`` (an int) tokens already
     cached.
 
@@ -569,32 +860,36 @@ def decode_step(params, cache, tokens, length, cfg: LMConfig, mesh=None):
     returns finite logits: the reference's ``dynamic_update_slice`` clamps
     its index the same way, so the two agree there too.
 
-    Under a mesh ``tokens`` and the cache hold this rank's batch rows (the
-    cache's sequence axis is whole; the plans' cache specs split it over
-    ``model`` for GSPMD, which the port leaves out), and so do the logits.
+    Under a mesh ``tokens`` hold this rank's batch rows, the cache its
+    block of them and of the sequence (the plans' cache specs), ``params``
+    its blocks under ``specs``; the logits are the rank's rows of its
+    vocab block.
     """
-    _check_mesh(mesh, cfg)
-    x = lookup(params["embed"], tokens[:, None])
+    _check_mesh(mesh, cfg, specs)
+    x = _embed(params, tokens[:, None], mesh, specs)
     offset = 0
     for name in ("dense_layers", "moe_layers"):
         if name not in params:
             continue
         stacked = params[name]
+        s = None if specs is None else _layer_spec(specs[name])
         for i in range(tree.leaves(stacked)[0].shape[0]):
             layer_cache = {k: c[offset + i] for k, c in cache.items()}
             x = _decode_layer(_layer(stacked, i), x, layer_cache, length,
-                              cfg, mesh)
+                              cfg, mesh, s)
         offset += tree.leaves(stacked)[0].shape[0]
     x = rms_norm(x, params["final_norm"]["gamma"])
-    return logits_fn(params, x[:, 0], cfg), cache
+    return logits_fn(params, x[:, 0], cfg, mesh, specs), cache
 
 
-def prefill(params, tokens, cfg: LMConfig, mesh=None):
+def prefill(params, tokens, cfg: LMConfig, mesh=None, specs=None):
     """tokens (B,T) -> (last-position logits (B,V), stacked caches of
     exactly T slots in the compute dtype); under a mesh, of this rank's
-    rows."""
-    hidden, caches = backbone(params, tokens, cfg, mesh, with_cache=True)
+    rows, its vocab block of the logits and its sequence block of the
+    caches."""
+    hidden, caches = backbone(params, tokens, cfg, mesh, with_cache=True,
+                              specs=specs)
     names = ("c", "kr") if cfg.mla is not None else ("k", "v")
     cache = {n: torch.stack([kv[i] for kv in caches])
              for i, n in enumerate(names)}
-    return logits_fn(params, hidden[:, -1], cfg), cache
+    return logits_fn(params, hidden[:, -1], cfg, mesh, specs), cache

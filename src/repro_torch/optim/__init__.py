@@ -21,6 +21,15 @@ step), which would leave a bf16 model with float32 MLPs after one step.
 
 ``Optimizer.state_specs`` (``adafactor``'s) derives the state's
 ``PartitionSpec``s from the params' (``repro_torch.distributed``).
+``Optimizer.on_blocks(mesh, param_specs, state_specs)`` is the update on
+this rank's blocks of params, gradients and state under a mesh: the
+elementwise updates run on blocks as they are, ``adamw``'s where its
+moments' specs shard another dim (ZeRO rules) after the params and
+gradients are cut to the moments' blocks, the new params rejoined to their
+own, and ``adafactor``'s means (its row and column statistics and the
+update's RMS) sum each block over the axes that shard the reduced dims and
+divide by the whole size, so that each block equals the reference's update
+of the whole array there.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree
-from repro_torch.distributed.shardings import P
+from repro_torch.distributed.shardings import P, mentioned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +51,18 @@ class Optimizer:
     # state shapes differ from param shapes, e.g. adafactor's factored
     # moments): (params, param_specs) -> spec tree matching init(params)
     state_specs: Callable[[Any, Any], Any] | None = None
+    # optional: (mesh, param_specs, state_specs) -> the update on this
+    # rank's blocks, where the blocks as they are do not give it
+    # (adafactor's means, adamw's ZeRO moments)
+    blocks: Callable[[Any, Any, Any], Callable] | None = None
+
+    def on_blocks(self, mesh, param_specs, state_specs=None) -> Callable:
+        """The update on this rank's blocks of the params under
+        ``param_specs`` and of the state under ``state_specs`` (None: the
+        optimizer's own ``state_specs``, or the params') on ``mesh``."""
+        if mesh is None or self.blocks is None:
+            return self.update
+        return self.blocks(mesh, param_specs, state_specs)
 
 
 def _step_counter(params) -> torch.Tensor:
@@ -98,7 +119,29 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return (tree.tree_map(step, params, m, v),
                 {"m": m, "v": v, "t": t})
 
-    return Optimizer(init, update)
+    def blocks(mesh, param_specs, state_specs):
+        layout = param_specs if state_specs is None else state_specs["m"]
+        if tree.leaves(layout) == tree.leaves(param_specs):
+            return update
+
+        def zero(grads, state, params):
+            # ZeRO: the moments' blocks of the update, the params rejoined
+            with torch.no_grad():
+                new, state = update(_respec(mesh, grads, param_specs, layout),
+                                    state,
+                                    _respec(mesh, params, param_specs, layout))
+                return _respec(mesh, new, layout, param_specs), state
+        return zero
+
+    return Optimizer(init, update, blocks=blocks)
+
+
+def _respec(mesh, x, have, want):
+    """Each block of ``x`` under ``have`` recut to its block under
+    ``want``."""
+    from repro_torch.distributed.mesh import respec
+    return tree.tree_map(lambda a, h, w: respec(a, mesh, h, w), x, have,
+                         want)
 
 
 def adagrad(lr: float, eps: float = 1e-10,
@@ -162,31 +205,38 @@ def adafactor(lr: float, eps: float = 1e-30,
 
         return {"s": tree.tree_map(one, params), "t": _step_counter(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, mesh=None, param_specs=None):
         t = state["t"] + 1
         beta = 1.0 - (t.to(torch.float32) + 1.0) ** -0.8
 
-        def one(p, g, s):
+        def one(p, g, s, spec):
+            mean = _mean if mesh is None else _block_mean(mesh, spec, p)
             g32 = g.to(torch.float32)
             g2 = g32 * g32 + eps
             if "r" in s:
-                r = beta * s["r"] + (1 - beta) * g2.mean(-1)
-                c = beta * s["c"] + (1 - beta) * g2.mean(-2)
+                r = beta * s["r"] + (1 - beta) * mean(g2, -1)
+                c = beta * s["c"] + (1 - beta) * mean(g2, -2)
+                # r's last dim is the param's second-to-last
+                r_mean = (r.mean(-1, keepdim=True) if mesh is None
+                          else mean(r[..., None], -2))
                 denom = r[..., None] * c[..., None, :] \
-                    / torch.clamp_min(r.mean(-1, keepdim=True), eps)[..., None]
+                    / torch.clamp_min(r_mean, eps)[..., None]
                 upd = g32 * torch.rsqrt(denom + eps)
                 new_s = {"r": r, "c": c}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 upd = g32 * torch.rsqrt(v + eps)
                 new_s = {"v": v}
-            rms = torch.sqrt(torch.mean(upd * upd) + eps)
+            rms = torch.sqrt(mean(upd * upd, None) + eps)
             upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
             return (p - lr * upd).to(p.dtype), new_s
 
-        outs = [one(p, g, s) for p, g, s in zip(
+        specs = (tree.flatten_up_to(params, param_specs)
+                 if param_specs is not None else [None] * len(
+                     tree.leaves(params)))
+        outs = [one(p, g, s, spec) for p, g, s, spec in zip(
             tree.leaves(params), tree.flatten_up_to(params, grads),
-            tree.flatten_up_to(params, state["s"]), strict=True)]
+            tree.flatten_up_to(params, state["s"]), specs, strict=True)]
         return (tree.unflatten(params, [o[0] for o in outs]),
                 {"s": tree.unflatten(params, [o[1] for o in outs]), "t": t})
 
@@ -206,7 +256,36 @@ def adafactor(lr: float, eps: float = 1e-30,
 
         return {"s": _map_specs(params, param_specs, one), "t": P()}
 
-    return Optimizer(init, update, state_specs=state_specs)
+    def blocks(mesh, param_specs, state_specs):
+        return lambda grads, state, params: update(grads, state, params,
+                                                   mesh, param_specs)
+
+    return Optimizer(init, update, state_specs=state_specs, blocks=blocks)
+
+
+def _mean(x: torch.Tensor, dim) -> torch.Tensor:
+    """``x.mean(dim)`` (all of ``x`` where ``dim`` is None)."""
+    return torch.mean(x) if dim is None else x.mean(dim)
+
+
+def _block_mean(mesh, spec, p: torch.Tensor):
+    """``_mean`` of the whole array on this rank's block of it, for a
+    tensor laid out as the param block ``p`` under ``spec`` (its dims
+    counted from the end): the block's sum over a dim that ``spec`` shards
+    is summed over those axes and divided by the whole size there."""
+    from repro_torch.distributed.mesh import psum
+    entries = tuple(spec) + (None,) * (p.ndim - len(spec))
+
+    def mean(x: torch.Tensor, dim) -> torch.Tensor:
+        dims = range(-p.ndim, 0) if dim is None else (dim,)
+        axes = tuple(a for d in dims for a in mentioned(P(entries[d])))
+        if not axes:
+            return _mean(x, dim)
+        n = mesh.axis_size(axes)
+        total = torch.sum(x) if dim is None else x.sum(dim)
+        size = x.numel() if dim is None else x.shape[dim]
+        return psum(total, mesh, axes) / (size * n)
+    return mean
 
 
 def _map_specs(params, param_specs, fn):

@@ -681,9 +681,11 @@ def test_flash_attention_on_card_vs_cpu(gen):
 @pytest.mark.parametrize("ep_2d", [False, True])
 def test_lm_mesh_prefill_and_decode_vs_mesh_free(gen, nccl_mesh, ep_2d):
     """The reduced qwen3-moe with expert parallelism (sharded, or the 2D
-    serving layout) under a (1, 1) NCCL mesh: prefill's logits and cache and
-    one decode step's logits equal the mesh-free calls', and the MoE's
-    collectives ran."""
+    serving layout) and Megatron TP under a (1, 1) NCCL mesh: prefill's
+    logits and cache and one decode step's logits equal the mesh-free
+    calls', and the MoE's collectives ran."""
+    from repro_torch.configs.lm_common import lm_param_rules, serve_rules_2d
+    from repro_torch.distributed.shardings import make_param_specs
     from repro_torch.models import lm
     from repro_torch.models.moe import MoEConfig
     cfg = _lm_small(qk_norm=True, ep_axis="model", ep_2d=ep_2d,
@@ -691,19 +693,21 @@ def test_lm_mesh_prefill_and_decode_vs_mesh_free(gen, nccl_mesh, ep_2d):
                     moe=MoEConfig(d_model=64, d_expert=32, n_experts=8,
                                   top_k=2, capacity_factor=2.0))
     params = _on_card(lm.init(0, cfg, device="cpu"))
+    specs = make_param_specs(params, serve_rules_2d(cfg) if ep_2d
+                             else lm_param_rules(cfg))
     toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen,
                          device="cuda")
     grow = lambda c: {k: torch.nn.functional.pad(  # noqa: E731
         v, [0, 0] * (v.ndim - 3) + [0, 1]) for k, v in c.items()}
     nccl_mesh.calls.clear()
     with torch.inference_mode():
-        got, cache = lm.prefill(params, toks[:, :64], cfg, nccl_mesh)
+        got, cache = lm.prefill(params, toks[:, :64], cfg, nccl_mesh, specs)
         want, wcache = lm.prefill(params, toks[:, :64], cfg)
         torch.testing.assert_close(got, want, **_recsys_tol())
         for k in cache:
             torch.testing.assert_close(cache[k], wcache[k], **_recsys_tol())
         got, _ = lm.decode_step(params, grow(cache), toks[:, 64], 64, cfg,
-                                nccl_mesh)
+                                nccl_mesh, specs)
         want, _ = lm.decode_step(params, grow(wcache), toks[:, 64], 64, cfg)
     torch.testing.assert_close(got, want, **_recsys_tol())
     assert nccl_mesh.calls["all_reduce"] >= 2 * cfg.n_layers

@@ -283,38 +283,51 @@ class TestLMFamily:
             torch.testing.assert_close(rgrads[path], g, rtol=0, atol=0)
 
     def test_mesh_raises(self, tmp_path):
-        """A mesh that is not a ``Mesh`` raises; on a (1, 1) gloo mesh the
-        mesh branches run (sharded and 2D EP, context-parallel attention,
-        sequence sharding) and each of the four entry points, gradients
+        """A mesh that is not a ``Mesh``, a mesh without the params'
+        specs, or context-parallel attention whose specs split the
+        attention over ``model``, raises; on a (1, 1) gloo mesh the mesh
+        branches run (the vocab-parallel embedding, the Megatron FFN,
+        sharded and 2D EP, context-parallel attention with the attention
+        replicated as in qwen2's rules, sequence sharding, the
+        sequence-split cache) and each of the four entry points, gradients
         too, equals its mesh-free call."""
         import torch.distributed as dist
 
+        from repro_torch.configs.lm_common import lm_param_rules
         from repro_torch.distributed import mesh as M
+        from repro_torch.distributed.shardings import P, make_param_specs
         cfg = dataclasses.replace(
             VARIANTS["qwen3-moe-30b-a3b"], ep_axis="model",
             context_parallel=True, seq_shard=True, batch_axes=("data",))
         p = lm.init(0, cfg, device="cpu")
+        specs = make_param_specs(p, [(k, P()) for k in (
+            "['wq']", "['wk']", "['wv']", "['wo']")] + lm_param_rules(cfg))
         toks, tgt = (torch.from_numpy(a) for a in _tokens(2, 16, cfg.vocab,
                                                           3))
         batch = {"tokens": toks, "targets": tgt}
         with pytest.raises(TypeError, match="Mesh"):
+            lm.backbone(p, toks, cfg, mesh="mesh", specs=specs)
+        with pytest.raises(ValueError, match="specs"):
             lm.backbone(p, toks, cfg, mesh="mesh")
         M.init("cpu", rank=0, world_size=1,
                store=dist.FileStore(str(tmp_path / "store"), 1))
         try:
             mesh = M.make_mesh((1, 1), ("data", "model"), "cpu")
+            with pytest.raises(ValueError, match="context-parallel"):
+                lm.backbone(p, toks, cfg, mesh, specs=make_param_specs(
+                    p, lm_param_rules(cfg)))
             for ep_2d in (False, True):
                 c = dataclasses.replace(cfg, ep_2d=ep_2d)
                 calls = dict(mesh.calls)
                 with torch.no_grad():
                     for got, want in (
-                            (lm.backbone(p, toks, c, mesh),
+                            (lm.backbone(p, toks, c, mesh, specs=specs),
                              lm.backbone(p, toks, c)),
-                            (lm.prefill(p, toks, c, mesh),
+                            (lm.prefill(p, toks, c, mesh, specs),
                              lm.prefill(p, toks, c)),
                             (lm.decode_step(
                                 p, _pad_cache(lm.prefill(p, toks, c)[1]),
-                                toks[:, 0], 16, c, mesh)[0],
+                                toks[:, 0], 16, c, mesh, specs)[0],
                              lm.decode_step(
                                  p, _pad_cache(lm.prefill(p, toks, c)[1]),
                                  toks[:, 0], 16, c)[0])):
@@ -322,7 +335,8 @@ class TestLMFamily:
                                         strict=True):
                             torch.testing.assert_close(a, b, rtol=0, atol=0)
                 loss, grads = _value_and_grads(
-                    lambda q, c=c: lm.train_loss(q, batch, c, mesh), p)
+                    lambda q, c=c: lm.train_loss(q, batch, c, mesh, specs),
+                    p)
                 wloss, wgrads = _value_and_grads(
                     lambda q, c=c: lm.train_loss(q, batch, c), p)
                 assert float(loss) == float(wloss)

@@ -7,11 +7,16 @@ parameters are the port's init). The reference runs in one subprocess per
 mesh with 8 forced XLA host devices, as ``tests/test_multidev.py`` runs it;
 the port runs in 8 gloo processes of ``torch.distributed`` (one spawn for
 every case), as ``tests/test_torch_sharded.py`` does. The reference writes
-each output whole; each rank of the port writes what it holds: its batch
-rows of every output (its block under the out_spec ``P("data", ...)``)
-and, after the data-parallel sum over ``data``, every parameter's whole
-gradient. Each test holds the port's block at a mesh coordinate against the
-reference's block there, on a (2, 4) and a (4, 2) ("data", "model") mesh.
+each output whole; each rank of the port holds and writes its blocks: the
+params' blocks under the reference's rules (``configs.lm_common``'s
+``lm_param_rules``, with qwen2's replicated attention for the
+context-parallel archs and ``serve_rules_2d`` for the 2D serving cases),
+its batch rows of every output, the logits' vocab block and the caches'
+sequence block (the plans' out_specs), and each gradient's block after the
+data-parallel sum over the batch axes its spec leaves out, each with the
+index of its block. Each test holds the port's block at a mesh coordinate
+against the reference's block there, on a (2, 4) and a (4, 2) ("data",
+"model") mesh.
 
 The cases: ``moe_ffn_sharded`` and ``moe_ffn_2d`` (with a shared expert,
 and with ``token_chunk``) at the reference's capacity_factor 8.0
@@ -52,6 +57,9 @@ FN_TOL = dict(atol=2e-5)
 CP_TOL, CP_GRAD_TOL = dict(atol=2e-4), dict(atol=5e-3)
 LM_TOL = dict(atol=1e-4)
 DECODE_STEPS = 3
+# the cache's slots past the prompt: the decode steps', rounded up so that
+# the sequence splits over either mesh's model axis
+CACHE_PAD = 4
 
 # MoE function cases: the body, the shared expert, token_chunk, the
 # capacity factor and the (B, T) of the input
@@ -149,6 +157,21 @@ def lm_configs(lm_mod, moe_cls, mla_cls) -> dict:
 
 def _case_cfg(cfgs: dict, c: dict):
     return dataclasses.replace(cfgs[c["arch"]], **c.get("kw", {}))
+
+
+def case_rules(c: dict, cfg):
+    """The port's param rules of an LM case: ``serve_rules_2d`` for the
+    2D serving cases, the Megatron rules otherwise, with the attention
+    replicated (qwen2's override) where it is context-parallel."""
+    from repro_torch.configs.lm_common import lm_param_rules, serve_rules_2d
+    from repro_torch.distributed.shardings import P
+    if c["kind"] == "serve" and cfg.ep_2d:
+        return serve_rules_2d(cfg)
+    rules = lm_param_rules(cfg)
+    if cfg.context_parallel:
+        rules = [(k, P()) for k in ("['wq']", "['wk']", "['wv']", "['wo']",
+                                    "['bq']", "['bk']", "['bv']")] + rules
+    return rules
 
 
 def make_inputs() -> dict[str, np.ndarray]:
@@ -265,7 +288,7 @@ def jax_side(inp_path: str, out_dir: str, mname: str) -> None:
                 p, tk, cfg, mesh))(params, toks[:, :t])
             res[f"{name}/prefill"] = np.asarray(logits)
             cache = jax.tree.map(lambda a: jnp.pad(
-                a, [(0, 0)] * 2 + [(0, DECODE_STEPS)]
+                a, [(0, 0)] * 2 + [(0, CACHE_PAD)]
                 + [(0, 0)] * (a.ndim - 3)), cache)
             step = jax.jit(lambda p, cc, tk, n, cfg=cfg: jlm.decode_step(
                 p, cc, tk, n, cfg, mesh), static_argnums=3)
@@ -285,8 +308,11 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch import tree
+    from repro_torch.configs.lm_common import _data_parallel_sum
     from repro_torch.distributed import mesh as M
-    from repro_torch.distributed.shardings import P, NamedSharding
+    from repro_torch.distributed.shardings import (P, NamedSharding,
+                                                   block_index,
+                                                   make_param_specs)
     from repro_torch.models import lm, mla, moe
     from repro_torch.models.common import make_generator
 
@@ -305,13 +331,21 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
         spec = P(*([None] * axis), "data")
         return NamedSharding(mesh, spec).shard(x)
 
-    def value_and_grads(fn, params):
-        """fn's value and every param's gradient after the data-parallel
-        sum over ``data``."""
+    def put(key, block, spec, shape):
+        """The rank's block and its index in the whole array."""
+        res[key] = block.detach().float().numpy()
+        res[key + "#idx"] = np.array(
+            [(s.start, s.stop) for s in block_index(
+                mesh.shape, spec, tuple(shape), mesh.coord)])
+
+    def value_and_grads(fn, params, specs):
+        """fn's value and every param block's gradient after the
+        data-parallel sum over the batch axes its spec leaves out."""
         leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
         val, aux = fn(tree.unflatten(params, leaves))
         grads = torch.autograd.grad(val, leaves, materialize_grads=True)
-        grads = [M.psum(g, mesh, "data") for g in grads]
+        grads = _data_parallel_sum(list(grads), tree.leaves(specs), mesh,
+                                   ("data",))
         return val.detach(), aux, dict(zip(
             [p for p, _ in tree.flatten_with_path(params)], grads,
             strict=True))
@@ -336,21 +370,23 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
 
         for name, c in LM_CASES.items():
             cfg = _case_cfg(cfgs, c)
-            params = load(f"lm/{c['arch']}/p",
-                          lm.init(0, cfg, device="meta"))
+            whole = load(f"lm/{c['arch']}/p", lm.init(0, cfg, device="meta"))
+            specs = make_param_specs(whole, case_rules(c, cfg))
+            params = tree.tree_map(lambda a, s: NamedSharding(mesh, s)
+                                   .shard(a), whole, specs)
             b, t = c["bt"]
             toks = rows(inp[f"lm/{name}/tokens"])
             key = f"{mname}/{name}"
             if c["kind"] == "backbone":
-                def obj(p, cfg=cfg, toks=toks):
-                    h = lm.backbone(p, toks[:, :t], cfg, mesh)
+                def obj(p, cfg=cfg, toks=toks, specs=specs):
+                    h = lm.backbone(p, toks[:, :t], cfg, mesh, specs=specs)
                     return (h ** 2).sum(), h
-                _, h, grads = value_and_grads(obj, params)
+                _, h, grads = value_and_grads(obj, params, specs)
                 res[f"{key}/out"] = h.detach().numpy()
                 if cfg.seq_shard:          # the same call without it
                     off = dataclasses.replace(cfg, seq_shard=False)
                     _, h, g_off = value_and_grads(
-                        lambda p, off=off: obj(p, off), params)
+                        lambda p, off=off: obj(p, off), params, specs)
                     res[f"{key}/off/out"] = h.detach().numpy()
                     for path, g in g_off.items():
                         res[f"{key}/off/grad{path}"] = g.numpy()
@@ -358,26 +394,38 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
                 batch = {"tokens": toks[:, :t],
                          "targets": rows(inp[f"lm/{name}/targets"])}
                 lv, _, grads = value_and_grads(
-                    lambda p, cfg=cfg, batch=batch: (
-                        lm.train_loss(p, batch, cfg, mesh), None), params)
+                    lambda p, cfg=cfg, batch=batch, specs=specs: (
+                        lm.train_loss(p, batch, cfg, mesh, specs), None),
+                    params, specs)
                 res[f"{key}/loss"] = lv.numpy()
             else:
+                c_spec = P(None, "data", "model")
                 with torch.no_grad():
                     logits, cache = lm.prefill(params, toks[:, :t], cfg,
-                                               mesh)
-                    res[f"{key}/prefill"] = logits.numpy()
-                    cache = {k: torch.nn.functional.pad(
-                        v, [0, 0] * (v.ndim - 3) + [0, DECODE_STEPS])
+                                               mesh, specs)
+                    put(f"{key}/prefill", logits, P("data", "model"),
+                        (b, cfg.vocab))
+                    # the cache grown by CACHE_PAD slots, re-split over model
+                    cache = {k: NamedSharding(mesh, c_spec).shard(
+                        torch.nn.functional.pad(
+                            NamedSharding(mesh, c_spec).gather(v),
+                            [0, 0] * (v.ndim - 3) + [0, CACHE_PAD]))
                         for k, v in cache.items()}
                     for i in range(DECODE_STEPS):
                         logits, cache = lm.decode_step(
-                            params, cache, toks[:, t + i], t + i, cfg, mesh)
-                        res[f"{key}/decode{i}"] = logits.numpy()
+                            params, cache, toks[:, t + i], t + i, cfg, mesh,
+                            specs)
+                        put(f"{key}/decode{i}", logits, P("data", "model"),
+                            (b, cfg.vocab))
                 for k, v in cache.items():
-                    res[f"{key}/cache/{k}"] = v.float().numpy()
+                    whole_shape = (v.shape[0], b, t + CACHE_PAD,
+                                   *v.shape[3:])
+                    put(f"{key}/cache/{k}", v, c_spec, whole_shape)
                 continue
-            for path, g in grads.items():
-                res[f"{key}/grad{path}"] = g.numpy()
+            for (path, g), leaf in zip(grads.items(), tree.leaves(whole),
+                                       strict=True):
+                put(f"{key}/grad{path}", g,
+                    dict(tree.flatten_with_path(specs))[path], leaf.shape)
     np.savez(os.path.join(out_dir, f"port_{rank}.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()
@@ -433,15 +481,18 @@ def _block(ref_arr: np.ndarray, coord, mname: str, axis: int = 0):
                    axis=axis)
 
 
-def _pairs(runs, mname: str, key: str, axis: int | None = 0):
-    """(port block, reference block) at every rank's mesh coordinate; with
-    ``axis`` None the reference's whole array (a gradient)."""
+def _pairs(runs, mname: str, key: str):
+    """(port block, reference block) at every rank's mesh coordinate: the
+    block the port wrote the index of, else the rank's batch rows."""
     ref, ranks = runs
     out = []
     for got in ranks:
         want = ref[f"{mname}/{key}"]
-        if axis is not None:
-            want = _block(want, got[f"{mname}/coord"], mname, axis)
+        idx = got.get(f"{mname}/{key}#idx")
+        if idx is None:
+            want = _block(want, got[f"{mname}/coord"], mname)
+        else:
+            want = want[tuple(slice(a, b) for a, b in idx)]
         out.append((got[f"{mname}/{key}"], want))
     return out
 
@@ -451,7 +502,7 @@ def _grad_keys(runs, mname: str, case: str) -> list[str]:
     head = f"{mname}/{case}/grad"
     ref_keys = sorted(k[len(f"{mname}/"):] for k in ref if k.startswith(head))
     port_keys = sorted(k[len(f"{mname}/"):] for k in ranks[0]
-                       if k.startswith(head))
+                       if k.startswith(head) and not k.endswith("#idx"))
     assert ref_keys == port_keys and ref_keys
     return ref_keys
 
@@ -483,7 +534,8 @@ def test_cp_backbone_and_grads_match_reference(runs, case, mname):
     for got, want in _pairs(runs, mname, f"{case}/out"):
         np.testing.assert_allclose(got, want, **CP_TOL)
     for k in _grad_keys(runs, mname, case):
-        for got, want in _pairs(runs, mname, k, axis=None):
+        for got, want in _pairs(runs, mname, k):
+            assert got.shape == want.shape, k
             np.testing.assert_allclose(got, want, **CP_GRAD_TOL, err_msg=k)
 
 
@@ -497,7 +549,8 @@ def test_seq_shard_on_equals_off(runs, mname):
     for got in ranks:
         np.testing.assert_allclose(got[f"{key}/out"], got[f"{key}/off/out"],
                                    rtol=1e-6, atol=1e-6)
-        grads = [k for k in got if k.startswith(f"{key}/grad")]
+        grads = [k for k in got if k.startswith(f"{key}/grad")
+                 and not k.endswith("#idx")]
         assert grads
         for k in grads:
             off = k.replace(f"{key}/grad", f"{key}/off/grad")
@@ -517,7 +570,7 @@ def test_train_loss_and_grads_match_reference(runs, case, mname):
         np.testing.assert_allclose(got[f"{mname}/{case}/loss"],
                                    ref[f"{mname}/{case}/loss"], **LM_TOL)
     for k in _grad_keys(runs, mname, case):
-        for got, want in _pairs(runs, mname, k, axis=None):
+        for got, want in _pairs(runs, mname, k):
             assert got.shape == want.shape, k
             np.testing.assert_allclose(got, want, **LM_TOL, err_msg=k)
 
@@ -525,8 +578,9 @@ def test_train_loss_and_grads_match_reference(runs, case, mname):
 @pytest.mark.parametrize("mname", list(MESHES))
 @pytest.mark.parametrize("case", SERVE_CASES)
 def test_prefill_and_decode_match_reference(runs, case, mname):
-    """Prefill's last logits, three decode steps' logits and the final
-    cache (the rank's batch rows)."""
+    """Prefill's last logits, three decode steps' logits (the rank's rows
+    of its vocab block) and the final cache (its rows of its sequence
+    block)."""
     keys = [f"{case}/prefill"] + [f"{case}/decode{i}"
                                   for i in range(DECODE_STEPS)]
     for k in keys:
@@ -538,7 +592,8 @@ def test_prefill_and_decode_match_reference(runs, case, mname):
               if k.startswith(f"{mname}/{case}/cache/")]
     assert caches
     for k in caches:
-        for got, want in _pairs(runs, mname, k, axis=1):
+        for got, want in _pairs(runs, mname, k):
+            assert got.shape == want.shape, k
             np.testing.assert_allclose(got, want, **LM_TOL, err_msg=k)
 
 
