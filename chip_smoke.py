@@ -105,12 +105,24 @@ Phases, each of which fails the run when it fails:
    plain route's on the same batch; DIN's and BERT4Rec's serve_p99 and
    GraphSAGE's molecule and full_graph_sm steps, card against CPU; peak
    memory per arch;
-14. dryrun: ``python -m repro_torch.launch.dryrun --arch all --mesh
-   both`` in a subprocess: every cell's plan run on rank 0's blocks of meta
-   tensors under a fake 256- or 512-rank group, its per-rank flops, bytes,
-   wire bytes, H100 roofline bound, peak and ``fits_hbm`` printed; any
-   failed cell fails the run;
-15. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
+14. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
+   subprocesses at once, over the cells the next two phases read
+   (qwen3-1.7b's, deepseek-v3-671b's decode_32k, DIN's and BERT4Rec's):
+   each cell's plan run on rank 0's blocks of meta tensors under a fake
+   256-rank group, its per-rank flops, bytes, wire bytes, H100 roofline
+   bound, peak and ``fits_hbm`` printed; any failed cell fails the run;
+15. recsys_mesh: DIN's and BERT4Rec's registry cells with their item
+   tables row-sharded over ``model`` (masked lookups summed over it,
+   BERT4Rec's tied output and cloze loss on the rank's vocab block):
+   train_batch, serve_p99, serve_bulk and retrieval_cand through the
+   plans on a (1, 1) NCCL mesh at the registry's widths (DIN 1M x 18,
+   BERT4Rec 26,752 x 64; BERT4Rec's serve_bulk cut to 16,384 rows),
+   each against the same plan without a mesh: outputs, loss, gradients,
+   the params and optimizer state after a step; then rank 0's blocks of
+   the 16 x 16 mesh on the card under the fake group, per-call time and
+   peak memory beside the dry-run's counted peak; no launch of either
+   kernel;
+16. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
    real tensors on the card, at full width and depth, under the fake
    256-rank group this process starts (its collectives move nothing):
    qwen3-1.7b's train_4k, prefill_32k and decode_32k and
@@ -2037,23 +2049,41 @@ def phase_registry(card: str) -> dict:
 
 # --------------------------------------------------------------- dryrun --
 DRYRUN_TIMEOUT_S = 900
+# the dry-run's cells the card phases read, on the 16 x 16 mesh: lm_blocks'
+# qwen3-1.7b cells and deepseek-v3's decode_32k, recsys_mesh's DIN and
+# BERT4Rec cells; two processes at once (every cell of every arch on both
+# meshes is ``python -m repro_torch.launch.dryrun --arch all --mesh both``
+# on any CPU, the card idle)
+DRYRUN_RUNS = ((["--arch", "qwen3-1.7b,din,bert4rec"], 6),
+               (["--arch", "deepseek-v3-671b", "--shape", "decode_32k"], 1))
 
 
 def phase_dryrun() -> dict:
-    """``python -m repro_torch.launch.dryrun --arch all --mesh both`` in a
-    subprocess (this process held NCCL in the mesh phases), into a
-    temporary file: every cell's plan on rank 0's blocks of a fake 256- or
-    512-rank group, counted on meta tensors. Fails on any failed cell."""
+    """``python -m repro_torch.launch.dryrun --mesh single`` over the cells
+    of DRYRUN_RUNS, in subprocesses (this process held NCCL in the mesh
+    phases) started together, into temporary files: each cell's plan on
+    rank 0's blocks of a fake 256-rank group, counted on meta tensors.
+    Fails on any failed cell."""
     t0 = time.perf_counter()
-    jobs = max(1, min(8, os.cpu_count() or 1))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
-        path = os.path.join(d, "dryrun.json")
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "all", "--mesh", "both", "--jobs", str(jobs), "--out", path],
-            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
-        recs = json.load(open(path)) if os.path.exists(path) else []
+        procs = []
+        for i, (sel, jobs) in enumerate(DRYRUN_RUNS):
+            path = os.path.join(d, f"dryrun_{i}.json")
+            procs.append((path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *sel,
+                 "--mesh", "single", "--jobs", str(jobs), "--out", path],
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        recs, failed = [], []
+        for path, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            finally:
+                proc.kill()
+            if proc.returncode != 0:
+                failed.append(f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            if os.path.exists(path):
+                recs.extend(json.load(open(path)))
     counts = {s: sum(x["status"] == s for x in recs)
               for s in ("ok", "skip", "error")}
     for x in sorted(recs, key=lambda x: (x["mesh"], x["arch"], x["shape"])):
@@ -2070,11 +2100,9 @@ def phase_dryrun() -> dict:
             print(f"[dryrun] {x['arch']} x {x['shape']} @ {x['mesh']}: "
                   f"FAILED {x['error']}")
     print(f"[dryrun] {counts['ok']} ok / {counts['skip']} skip / "
-          f"{counts['error']} fail, {jobs} jobs, in "
-          f"{time.perf_counter() - t0:.1f} s (exit code {r.returncode})")
-    if r.returncode != 0 or counts["error"] or not counts["ok"]:
-        raise AssertionError(f"the dry-run failed:\n{r.stdout[-3000:]}\n"
-                             f"{r.stderr[-3000:]}")
+          f"{counts['error']} fail in {time.perf_counter() - t0:.1f} s")
+    if failed or counts["error"] or not counts["ok"]:
+        raise AssertionError("the dry-run failed:\n" + "\n".join(failed))
     return dict(counts=counts, records=recs)
 
 
@@ -3095,6 +3123,279 @@ def phase_lm_blocks(card: str, dry: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------- recsys_mesh --
+# DIN's and BERT4Rec's registry cells, their item tables row-sharded over
+# "model": (a) on a (1, 1) NCCL mesh at the registry's widths against the
+# same plans without a mesh, (b) rank 0's blocks of the 16 x 16 mesh under
+# the fake group (compute only). Batches are the registry's but where one
+# card cannot hold the whole batch:
+RECSYS_MESH_ARCHS = ("din", "bert4rec")
+RECSYS_MESH_CUTS = {
+    # the whole batch's (262,144, 2, 200, 200) f32 attention logits alone
+    # are 84 GB, and its scores 28 GB (the mesh path holds the block, its
+    # transpose and the gathered scores at once); 16,384 rows are the 16 x
+    # 16 mesh's rank's
+    ("bert4rec", "serve_bulk"): 16_384,
+}
+RECSYS_MESH_REPS = {"train_batch": 2, "serve_p99": 10, "serve_bulk": 3,
+                    "retrieval_cand": 3}
+
+
+def recsys_inputs(args, specs, mesh, cfg, gen: torch.Generator) -> tuple:
+    """Rank ``mesh.coord``'s block of each of a recsys plan's ``args``
+    (meta tensors at full size) under ``specs`` (whole on a (1, 1) mesh),
+    on the card: the params N(0, 0.02) and the layer norms' gammas 1, the
+    optimizer state uniform in [0.5, 1.5] (a state far from AdamW's first
+    step, whose sign(g) rounding noise flips) and its step counts zero;
+    the batch's ids in the item range (``mask_pos`` in the sequence),
+    masks true at 0.8, labels 0 or 1, features N(0, 1)."""
+    from repro_torch.distributed.shardings import block_index
+    out = []
+    for i, (arg, sp) in enumerate(zip(args, specs, strict=True)):
+        state, batch = i == 1 and len(args) == 3, i == len(args) - 1
+        leaves = []
+        for (path, x), spec in zip(tree.flatten_with_path(arg),
+                                   tree.flatten_up_to(arg, sp),
+                                   strict=True):
+            idx = block_index(mesh.shape, spec, tuple(x.shape), mesh.coord)
+            shape = tuple(sl.stop - sl.start for sl in idx)
+            kw = dict(generator=gen, device="cuda")
+            if x.dtype == torch.bool:
+                y = torch.rand(shape, **kw) < 0.8
+            elif not x.is_floating_point():
+                hi = cfg.seq_len if "mask_pos" in path else cfg.n_items
+                y = (torch.zeros(shape, dtype=x.dtype, device="cuda")
+                     if state else
+                     torch.randint(0, hi, shape, dtype=x.dtype, **kw))
+            elif state:
+                y = torch.rand(shape, **kw) + 0.5
+            elif batch and "labels" in path:
+                y = (torch.rand(shape, **kw) < 0.4).float()
+            elif batch:
+                y = torch.randn(shape, **kw)
+            elif "gamma" in path:
+                y = torch.ones(shape, dtype=x.dtype, device="cuda")
+            else:
+                y = torch.empty(shape, dtype=x.dtype, device="cuda").normal_(
+                    0.0, 0.02, generator=gen)
+            leaves.append(y)
+        out.append(tree.unflatten(arg, leaves))
+    return tuple(out)
+
+
+def compare_trees(label: str, got, want, tol: dict) -> float:
+    """Each float leaf of ``got`` against its counterpart in ``want`` at
+    ``tol``, printed as one line; raises on a miss. Returns the max abs
+    error."""
+    worst = 0.0
+    pairs = [(path, a, b) for (path, a), b in zip(
+        tree.flatten_with_path(got), tree.leaves(want), strict=True)
+        if a.is_floating_point()]
+    for path, a, b in pairs:
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        if not torch.allclose(a.float(), b.float(), **tol) \
+                or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {path} differs beyond the "
+                                 "tolerance")
+    print(f"[check] {label}: {len(pairs)} tensors, max_abs_err {worst:.3e} "
+          f"(rtol {tol['rtol']}, atol {tol['atol']}) ok")
+    return worst
+
+
+def recsys_mesh_cells(mesh, name: str, card: str, gen: torch.Generator
+                      ) -> dict:
+    """``name``'s four registry cells under the (1, 1) ``mesh`` against
+    the same plans without one, with the model's init params at full
+    width: each serve cell's output, the train cell's loss, gradients
+    (``plan.grads``) and the params and optimizer state after one step;
+    the mesh and mesh-free times, the collectives per call and the peak
+    memory."""
+    from unittest import mock
+    out: dict = {}
+    bundle = configs.get_arch(name)
+    params = bundle.init(0, device="cuda")
+    for cell, step in bundle.steps.items():
+        full = configs.RECSYS_SHAPES[cell]
+        cut = RECSYS_MESH_CUTS.get((name, cell))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.dict(configs.RECSYS_SHAPES,
+                             {cell: {**full, "batch": cut or full["batch"]}}):
+            plans = {k: step.make_fn(bundle, m, False)
+                     for k, m in (("mesh", mesh), ("mesh-free", None))}
+        free = plans["mesh-free"]
+        inputs = recsys_inputs(free.args, free.local_specs(), mesh,
+                               bundle.cfg, gen)
+        batch = inputs[-1]
+        rows = (f"{full['n_candidates']} candidates"
+                if "n_candidates" in full else
+                f"{cut} rows (cut from {full['batch']})" if cut
+                else f"{full['batch']} rows")
+        label = f"recsys_mesh {name} {cell} ({rows}), f32 on {card}"
+        ms, calls, errs = {}, {}, []
+        if step.kind == "serve":
+            with torch.inference_mode():
+                res = {}
+                for k, plan in plans.items():
+                    res[k], calls[k] = _calls(mesh, lambda plan=plan: plan.fn(
+                        params, batch))
+                    ms[k] = call_ms(lambda plan=plan: plan.fn(params, batch),
+                                    reps=RECSYS_MESH_REPS[cell])
+            errs.append(compare(f"{label}: output, mesh vs mesh-free",
+                                res["mesh"], res["mesh-free"], RECSYS_TOL))
+        else:
+            state = inputs[1]
+            res = {}
+            for k, plan in plans.items():
+                res[k, "grads"], calls[k] = _calls(
+                    mesh, lambda plan=plan: plan.grads(params, batch))
+                res[k, "step"] = plan.fn(params, state, batch)
+                ms[k] = call_ms(lambda plan=plan: plan.fn(params, state,
+                                                          batch),
+                                reps=RECSYS_MESH_REPS[cell])
+            errs.append(compare(f"{label}: loss, mesh vs mesh-free",
+                                res["mesh", "grads"][0],
+                                res["mesh-free", "grads"][0], RECSYS_TOL))
+            # a bias before a softmax over the positions it shifts has an
+            # exactly zero gradient, rounding noise on either side: held
+            # joined to its layer's weight (phase_recsys)
+            cfg = bundle.cfg
+            biases = ((f"['attn'][{len(cfg.attn_mlp)}]['b']",)
+                      if name == "din" else
+                      tuple(f"['blocks'][{i}]['wk']['b']"
+                            for i in range(cfg.n_blocks)))
+            grads = [_join_softmax_biases(params, tree.leaves(
+                res[k, "grads"][1]), biases) for k in ("mesh", "mesh-free")]
+            items = tuple(res["mesh", "grads"][1]["items"].shape)
+            check_tensors(f"{label}: every gradient block (items {items}), "
+                          f"mesh vs mesh-free", *grads, RECSYS_GRAD_REL_L2)
+            grad_err = max(float((a - b).abs().max())
+                           for a, b in zip(*grads, strict=True))
+            # the floor: the mesh-free gradients against a second run of
+            # themselves (index_add_'s atomics sum the item rows in any
+            # order)
+            floor = max(float((a - b).abs().max()) for a, b in zip(
+                _join_softmax_biases(params, tree.leaves(
+                    free.grads(params, batch)[1]), biases), grads[1],
+                strict=True))
+            errs.append(grad_err)
+            for j, part in enumerate(("params", "optimizer state")):
+                errs.append(compare_trees(
+                    f"{label}: {part} after one step, mesh vs mesh-free",
+                    res["mesh", "step"][j], res["mesh-free", "step"][j],
+                    RECSYS_TOL))
+            print(f"[recsys_mesh] {name} {cell}: gradients max abs err "
+                  f"{grad_err:.3e} (mesh-free against a second mesh-free "
+                  f"run: {floor:.3e})")
+            out[f"{cell} grad_floor"] = floor
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[recsys_mesh] {name} {cell} at full width on {card}: {rows}; "
+              f"mesh / mesh-free {ms['mesh']:.3f} / {ms['mesh-free']:.3f} ms "
+              f"per call; collectives per call {calls['mesh']}; peak device "
+              f"memory {peak:.2f} GB; max abs err {max(errs):.3e}")
+        out[cell] = dict(ms=ms["mesh"], free_ms=ms["mesh-free"],
+                         calls=calls["mesh"], peak_gb=peak, err=max(errs),
+                         rows=rows)
+        del plans, inputs, batch, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def recsys_mesh_blocks(card: str, dry: dict, gen: torch.Generator) -> dict:
+    """Rank 0's blocks of the 16 x 16 production mesh for every cell of
+    DIN and BERT4Rec at the registry's shapes, as CUDA tensors under the
+    fake 256-rank group (its collectives move nothing, so compute only and
+    the values not held): the per-call time and peak memory beside the
+    dry-run's counted peak."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    counted = {(x["arch"], x["shape"]): x["roofline"]["memory"]["peak_bytes"]
+               for x in dry["records"]
+               if x["status"] == "ok" and x["mesh"] == "16x16"}
+    dmesh.init("meta", rank=0, world_size=256)
+    out: dict = {}
+    try:
+        mesh = make_production_mesh(multi_pod=False, device="meta")
+        for name in RECSYS_MESH_ARCHS:
+            bundle = configs.get_arch(name)
+            for cell, step in bundle.steps.items():
+                plan = step.make_fn(bundle, mesh, False)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_gb = torch.cuda.memory_allocated() / 1e9
+                blocks = recsys_inputs(plan.args, plan.local_specs(), mesh,
+                                       bundle.cfg, gen)
+                if tuple(blocks[0]["items"].shape) != (
+                        bundle.cfg.n_items // 16, bundle.cfg.embed_dim):
+                    raise AssertionError(f"{name} {cell}: rank 0 holds "
+                                         "another block of items")
+                grad = torch.enable_grad() if step.kind == "train" \
+                    else torch.inference_mode()
+                with grad:
+                    plan.fn(*blocks)                    # the first call
+                    torch.cuda.synchronize()
+                    reps = RECSYS_MESH_REPS[cell]
+                    t1 = time.perf_counter()
+                    for _ in range(reps):
+                        plan.fn(*blocks)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t1) * 1e3 / reps
+                peak = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+                want = counted.get((name, cell), float("nan")) / 1e9
+                out[f"{name} {cell}"] = dict(ms=ms, peak_gb=peak,
+                                             dryrun_peak_gb=want)
+                print(f"[recsys_mesh] {name} {cell}, rank 0 of 16 x 16 on "
+                      f"{card}: {ms:.3f} ms per call (compute only, "
+                      f"collectives not run); peak device memory "
+                      f"{peak:.2f} GB (dry-run's counted peak {want:.2f} "
+                      f"GB)")
+                del blocks
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_recsys_mesh(card: str, dry: dict) -> dict:
+    """DIN's and BERT4Rec's registry cells with the item tables row-sharded
+    over ``model``: every cell on a (1, 1) ("data", "model") NCCL mesh at
+    world size 1 against the same plan without a mesh (the masked lookup,
+    the sharded logsumexp and the score gather run at one rank, where they
+    do the mesh-free arithmetic, so the values are held), then rank 0's
+    blocks of the 16 x 16 mesh under the fake group; no launch of either
+    kernel."""
+    import torch.distributed as dist
+    reset_counts()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dmesh.init("cuda", rank=0, world_size=1,
+               store=dist.FileStore(os.path.join(pg_dir, "store"), 1))
+    out: dict = {"cells": {}}
+    try:
+        mesh = dmesh.make_mesh((1, 1), ("data", "model"), "cuda")
+        print(f"[recsys_mesh] process group: {dist.get_backend()}, world "
+              f"size {dist.get_world_size()}; mesh {mesh.shape} on "
+              f"{mesh.device}")
+        for name in RECSYS_MESH_ARCHS:
+            out["cells"][name] = recsys_mesh_cells(mesh, name, card, gen)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    out["blocks"] = recsys_mesh_blocks(card, dry, gen)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[recsys_mesh] launches of the port's kernels over the phase: "
+          f"{launches}; the phase took {time.perf_counter() - t0:.1f} s")
+    if any(launches.values()):
+        raise AssertionError("DIN's or BERT4Rec's mesh path launched a DLRM "
+                             "kernel")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3138,12 +3439,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun = phase_dryrun()
+    recsys_mesh = phase_recsys_mesh(card, dryrun)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm_blocks = phase_lm_blocks(card, dryrun)
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
                "recsys": recsys["launches"], "lm": lm_out["launches"],
                "lm_mesh": lm_mesh["launches"],
+               "recsys_mesh": recsys_mesh["launches"],
                "lm_blocks": lm_blocks["launches"],
                "registry": registry["launches"]}
     for r in records:
@@ -3220,6 +3525,19 @@ def main() -> int:
               + (f", train_batch {a['train']['ms']:.1f} ms"
                  if "train" in a else "")
               + f"; peak {a['peak_gb']:.2f} GB")
+    for name, cells in recsys_mesh["cells"].items():
+        print(f"[recsys_mesh] {name} on a (1, 1) mesh on {card}: mesh / "
+              f"mesh-free " + ", ".join(
+                  f"{c} {v['ms']:.3f} / {v['free_ms']:.3f} ms"
+                  for c, v in cells.items() if isinstance(v, dict))
+              + "; max abs err " + ", ".join(
+                  f"{c} {v['err']:.3e}" for c, v in cells.items()
+                  if isinstance(v, dict)))
+    for key, r in recsys_mesh["blocks"].items():
+        print(f"[recsys_mesh] {key}, rank 0 of 16 x 16 on {card}: "
+              f"{r['ms']:.3f} ms per call (compute only, collectives not "
+              f"run), peak {r['peak_gb']:.2f} GB (dry-run "
+              f"{r['dryrun_peak_gb']:.2f} GB)")
     for key, r in lm_blocks.items():
         if key != "launches":
             print(f"[lm_blocks] {key}, rank 0 of 16 x 16 on {card}: "

@@ -148,8 +148,11 @@ def restore(ckpt_dir: str, step: int, like, shardings=None):
     with np.load(path) as data:
         for (p, leaf), sh in zip(flat, shard_leaves, strict=True):
             if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
-                raise TypeError("bf16 leaves cannot be restored yet "
-                                "(ROADMAP A13)")
+                raise TypeError("bf16 leaves cannot be restored: .npz has "
+                                "no bf16 type to read one back, and the "
+                                "reference's checkpoints cannot round-trip "
+                                "one either (its restore cannot cast the "
+                                "raw bytes it stores)")
             if sh is not None:
                 mapped = _mapped(path, p)
                 arr = data[p] if mapped is None else mapped

@@ -4,9 +4,13 @@ sample). Encoder-only: serve cells run full-sequence scoring (its real
 serving mode); there is no autoregressive decode (DESIGN.md §4). Port of
 ``repro.configs.bert4rec_arch``.
 
-As DIN, BERT4Rec has no mesh branch in the port: under a mesh each rank
-holds the params whole and runs its block of the batch; the cloze loss,
-a ratio of sums, is the whole batch's (``_loss``)."""
+The item table is row-sharded over ``model`` as in the reference
+(``PARAM_RULES``): under a mesh each rank holds its row block of ``items``
+and of its row-wise adagrad accumulator, looks ids up through a masked
+local lookup summed over ``model``, and runs the tied output on its vocab
+block (``models.bert4rec``); the encoder is replicated and each rank runs
+its block of the batch. The cloze loss is the whole batch's, a ratio of
+sums over the batch axes."""
 
 from __future__ import annotations
 
@@ -21,7 +25,6 @@ from repro_torch.configs.recsys_common import (RECSYS_SHAPES,
                                                per_sample_flops,
                                                recsys_opt_rules,
                                                recsys_optimizer)
-from repro_torch.distributed.mesh import out_boundary, psum
 from repro_torch.distributed.shardings import P
 from repro_torch.models import bert4rec
 from repro_torch.tree import tree_map
@@ -65,23 +68,16 @@ def batch_axes_map(shape_name):
 
 
 def _loss(p, batch, mesh, axes):
-    """The cloze loss; under a mesh the whole batch's: its masked NLL sum
-    and its count of targets each summed over the batch axes."""
-    nll, count = bert4rec.cloze_terms(p, batch, CONFIG)
-    if mesh is None:
-        return nll / torch.clamp_min(count, 1.0)
-    loss = psum(nll, mesh, axes) / torch.clamp_min(psum(count, mesh, axes),
-                                                   1.0)
-    return out_boundary(loss, mesh, P())
+    return bert4rec.loss(p, batch, CONFIG, mesh, axes)
 
 
 def _score(p, batch, mesh, axes):
     # serving: next-item logits of the last position, (B, n_items)
-    return bert4rec.score(p, batch, CONFIG)
+    return bert4rec.score(p, batch, CONFIG, mesh)
 
 
 def _retr(p, batch, mesh, axes):
-    return bert4rec.retrieval_score(p, batch, CONFIG)
+    return bert4rec.retrieval_score(p, batch, CONFIG, mesh)
 
 
 @register("bert4rec")
@@ -96,7 +92,7 @@ def build():
               "item table row-sharded over model")
     for s in RECSYS_SHAPES:
         kwargs = dict(shape_name=s, make_batch=make_batch(s),
-                      batch_axes_map=batch_axes_map(s), whole_params=True)
+                      batch_axes_map=batch_axes_map(s), megatron=True)
         if s == "train_batch":
             kwargs["loss_fn"] = _loss
             # 16 grad-accumulation chunks: a fused 65k step's (B, 20, 26752)

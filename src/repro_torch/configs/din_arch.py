@@ -2,10 +2,11 @@
 200-80, target attention; a 1M-item table (port of
 ``repro.configs.din_arch``).
 
-The reference row-shards the item table over ``model`` and leaves the rest
-to GSPMD. DIN has no mesh branch in the port: under a mesh each rank holds
-the params whole and runs its block of the batch
-(``recsys_common.build_plan_generic``'s ``whole_params``)."""
+The item table is row-sharded over ``model`` as in the reference
+(``PARAM_RULES``): under a mesh each rank holds its row block of ``items``
+and of its row-wise adagrad accumulator, and ``models.din`` looks up every
+id through a masked local lookup summed over ``model``; the MLPs are
+replicated and each rank runs its block of the batch."""
 
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from repro_torch.configs.base import ArchBundle, StepDef, register
 from repro_torch.configs.lm_common import _meta
 from repro_torch.configs.recsys_common import (RECSYS_SHAPES,
                                                build_plan_generic,
-                                               data_parallel_mean,
                                                per_sample_flops,
                                                recsys_opt_rules,
                                                recsys_optimizer)
@@ -61,16 +61,15 @@ def batch_axes_map(shape_name):
 
 
 def _loss(p, batch, mesh, axes):
-    loss = din.loss(p, batch, CONFIG)
-    return loss if mesh is None else data_parallel_mean(loss, mesh, axes)
+    return din.loss(p, batch, CONFIG, mesh, axes)
 
 
 def _fwd(p, batch, mesh, axes):
-    return din.forward(p, batch, CONFIG)
+    return din.forward(p, batch, CONFIG, mesh)
 
 
 def _retr(p, batch, mesh, axes):
-    return din.retrieval_score(p, batch, CONFIG)
+    return din.retrieval_score(p, batch, CONFIG, mesh)
 
 
 @register("din")
@@ -84,7 +83,7 @@ def build():
         notes="item table row-sharded; target attention dense")
     for s in RECSYS_SHAPES:
         kwargs = dict(shape_name=s, make_batch=make_batch(s),
-                      batch_axes_map=batch_axes_map(s), whole_params=True)
+                      batch_axes_map=batch_axes_map(s), megatron=True)
         if s == "train_batch":
             kwargs["loss_fn"] = _loss
         elif s == "retrieval_cand":

@@ -29,8 +29,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import LONG_500K_SKIP, ArchBundle, StepDef
-from repro_torch.distributed.mesh import psum
-from repro_torch.distributed.shardings import P, make_param_specs, mentioned
+from repro_torch.distributed.shardings import (P, make_param_specs,
+                                               sync_grads)
 from repro_torch.models import lm
 
 
@@ -49,9 +49,9 @@ class CellPlan:
     # batch axes): its fn's step before the optimizer's update
     grads: Any = None
     # the specs of the arguments as ``fn`` takes them on a rank, where they
-    # differ from ``in_specs``: the params whole where the model has no
-    # sharded branch of its own (``whole``; DIN's and BERT4Rec's tables);
-    # None is ``in_specs``, as for every LM cell
+    # differ from ``in_specs``: dlrm-mlperf's 2D train cell takes each
+    # ``rank_of`` cut as its table's rows are (``recsys_common``'s
+    # ``batch_layout``); None is ``in_specs``, as for every other cell
     layout: Any = None
 
     def local_specs(self):
@@ -67,12 +67,6 @@ def bt_axes(multi_pod: bool):
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def whole(specs):
-    """``specs`` with every leaf replicated: an argument each rank holds
-    whole."""
-    return tree.tree_map(lambda _: P(), specs)
 
 
 # ------------------------------------------------------------- LM shapes --
@@ -216,20 +210,6 @@ def _batch_specs(batch, axes):
     return tree.tree_map(lambda x: P(axes, *([None] * (x.ndim - 1))), batch)
 
 
-def _data_parallel_sum(grads: list, specs: list, mesh, axes) -> list:
-    """Each gradient block summed over the batch axes its spec leaves out:
-    after a backward of ``lm``'s mesh path, the one sum left
-    (``models.lm``). A dim the spec shards over a batch axis (FSDP, the 2D
-    serving layout) was summed over it by the backward of its gather."""
-    if mesh is None:
-        return grads
-    out = []
-    for g, spec in zip(grads, specs, strict=True):
-        left = tuple(a for a in axes if a not in mentioned(spec))
-        out.append(psum(g, mesh, left) if left else g)
-    return out
-
-
 def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
                      dtype=torch.bfloat16,
                      microbatch: int | None = None,
@@ -289,9 +269,13 @@ def build_train_plan(bundle: ArchBundle, mesh, multi_pod: bool,
             loss = part.detach() if loss is None else loss + part.detach()
             grads = list(g) if grads is None else [
                 a + b for a, b in zip(grads, g, strict=True)]
-        grads = _data_parallel_sum(grads, tree.flatten_up_to(params, p_specs),
-                                   mesh, axes)
-        return loss, tree.unflatten(params, grads)
+        grads = tree.unflatten(params, grads)
+        if mesh is not None:
+            # the one sum left after lm's backward: over the batch axes a
+            # spec leaves out (FSDP's and the 2D layout's backward of their
+            # gathers summed over the axes they shard)
+            grads = sync_grads(mesh, grads, p_specs, axes)
+        return loss, grads
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch)

@@ -8,18 +8,24 @@ candidates).
 
 A plan follows the port's convention (``lm_common``): its ``args`` are
 full-size tensors on the ``meta`` device, and its ``fn`` runs on this
-rank's block of each (``CellPlan.local_specs``). The DLRM archs take their
-blocks as the reference's ``shard_map`` bodies do: the tables row-sharded
-over ``model`` with the masked-psum SLS, the ``rank_of`` hash tables
-sharded beside them and consulted through the two-phase translation
-(``models.dlrm``). The models without a mesh branch of their own (DIN,
-BERT4Rec, GraphSAGE) hold their params whole on every rank, where GSPMD
-shards the reference's item tables: each rank runs the
-model on its block of the batch, its loss is the whole batch's
-(``data_parallel_mean``), and the gradients are summed as
-``shard_map(check_vma=False)`` sums them (``shardings.sync_grads``).
-Non-trainable buffers (``rank_of``) ride in the batch, outside the
-differentiated params.
+rank's block of each (``CellPlan.local_specs``). Every arch holds the
+reference's blocks. The DLRM archs take theirs as the reference's
+``shard_map`` bodies do: the tables row-sharded over ``model`` with the
+masked-psum SLS, the ``rank_of`` hash tables sharded beside them and
+consulted through the two-phase translation (``models.dlrm``); the loss's
+cotangent is divided over the whole mesh and each gradient summed over the
+axes its spec leaves out (``shardings.sync_grads``), as
+``shard_map(check_vma=False)`` sums it. DIN's and BERT4Rec's item tables
+are row-sharded over ``model`` too, in Megatron's way (``models.din``,
+``models.bert4rec``: a masked lookup summed by ``reduce_from``, BERT4Rec's
+tied output on the rank's vocab block behind ``in_boundary``): every
+``model`` rank holds the whole cotangent of the replicated activations, so
+the loss's cotangent is divided over the batch axes only and each gradient
+is summed over the batch axes its spec leaves out (``megatron=True``).
+GraphSAGE's weights are replicated: each rank runs its block of the batch,
+its loss is the whole batch's (``data_parallel_mean``). Non-trainable
+buffers (``rank_of``) ride in the batch, outside the differentiated
+params.
 
 Plan functions take ``(params, batch, mesh, axes)``; a plan built with
 ``plain=True`` passes ``plain=True`` too, which routes the DLRM's kernels
@@ -33,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import optim, tree
-from repro_torch.configs.lm_common import CellPlan, bt_axes, whole
+from repro_torch.configs.lm_common import CellPlan, bt_axes
 from repro_torch.distributed.mesh import out_boundary, psum
 from repro_torch.distributed.shardings import P, make_param_specs, sync_grads
 
@@ -63,17 +69,18 @@ def data_parallel_mean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The mean over ``axes``' ranks of ``x``, this rank's mean over its
     equal block of the batch: the whole batch's mean, the same on every
     rank. Its cotangent is divided over the mesh as ``dlrm.loss``'s is
-    (``out_boundary``), so that ``sync_grads`` over whole params gives the
-    reference's gradient."""
+    (``out_boundary``), so that ``sync_grads`` over replicated params gives
+    the reference's gradient."""
     part = psum(x, mesh, axes) / mesh.axis_size(axes)
     return out_boundary(part, mesh, P())
 
 
-def train_fns(opt, loss_fn, mesh, p_layout):
+def train_fns(opt, loss_fn, mesh, p_specs, sum_axes=None):
     """A train cell's ``(loss_and_grads, train_step)`` for ``loss_fn(params,
     batch)``, the whole batch's loss on every rank: the gradient of every
-    param leaf, summed over the mesh axes its block ``p_layout`` leaves out
-    (``sync_grads``), then the optimizer's update."""
+    param block, summed over the mesh axes its spec ``p_specs`` leaves out
+    (``sync_grads``; only over those of ``sum_axes`` where given), then the
+    optimizer's update on the blocks."""
 
     def loss_and_grads(params, batch):
         leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
@@ -81,7 +88,7 @@ def train_fns(opt, loss_fn, mesh, p_layout):
         grads = tree.unflatten(params, list(torch.autograd.grad(
             loss, leaves, materialize_grads=True)))
         if mesh is not None:
-            grads = sync_grads(mesh, grads, p_layout)
+            grads = sync_grads(mesh, grads, p_specs, sum_axes)
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
@@ -95,7 +102,7 @@ def train_fns(opt, loss_fn, mesh, p_layout):
 def build_plan_generic(bundle, mesh, multi_pod, *, shape_name,
                        make_batch, loss_fn=None, fwd_fn=None,
                        batch_axes_map=None, microbatch: int | None = None,
-                       param_rules_override=None, whole_params: bool = False,
+                       param_rules_override=None, megatron: bool = False,
                        batch_layout=None, plain: bool = False) -> CellPlan:
     """Generic recsys/GNN cell builder (``repro/configs/recsys_common.py:
     44-122``).
@@ -111,11 +118,14 @@ def build_plan_generic(bundle, mesh, multi_pod, *, shape_name,
     activations are alive at a time in the backward. Side buffers like the
     DLRM's ``rank_of`` stay whole.
 
-    ``whole_params`` holds the params (and the optimizer state) whole on
-    every rank; ``batch_layout(b_specs)`` gives the specs of the batch's
-    blocks where ``fn`` takes other blocks than ``in_specs`` says (the 2D
-    tables' ``rank_of``). ``plain=True`` is handed to ``loss_fn`` or
-    ``fwd_fn``.
+    Each rank holds its blocks of the params and the optimizer state under
+    the specs (the row-wise accumulators beside their table's rows).
+    ``megatron=True`` sums the gradients over the batch axes alone, for a
+    ``loss_fn`` whose ``model`` ranks each hold the whole cotangent (DIN,
+    BERT4Rec); else over every axis a spec leaves out.
+    ``batch_layout(b_specs)`` gives the specs of the batch's blocks where
+    ``fn`` takes other blocks than ``in_specs`` says (the 2D tables'
+    ``rank_of``). ``plain=True`` is handed to ``loss_fn`` or ``fwd_fn``.
     """
     axes = bt_axes(multi_pod)
     dp = 32 if multi_pod else 16
@@ -128,17 +138,16 @@ def build_plan_generic(bundle, mesh, multi_pod, *, shape_name,
             lambda x: P(axes, *([None] * (x.ndim - 1))), batch)
     else:
         b_specs = batch_axes_map(batch, axes)
-    p_layout = whole(p_specs) if whole_params else p_specs
     route = {"plain": True} if plain else {}
 
     if loss_fn is None:
         def serve_step(params, batch):
             return fwd_fn(params, batch, mesh, axes, **route)
 
-        b_layout = batch_layout(b_specs) if batch_layout else b_specs
         return CellPlan(fn=serve_step, args=(params, batch),
                         in_specs=(p_specs, b_specs), out_specs=P(axes),
-                        layout=(p_layout, b_layout))
+                        layout=None if batch_layout is None else
+                        (p_specs, batch_layout(b_specs)))
 
     chunk_keys: tuple = ()
     if microbatch:
@@ -154,11 +163,9 @@ def build_plan_generic(bundle, mesh, multi_pod, *, shape_name,
                     dtype=x.dtype, device="meta"), batch[k])
             b_specs[k] = tree.tree_map(
                 lambda x: P(None, axes, *([None] * (x.ndim - 2))), batch[k])
-    b_layout = batch_layout(b_specs) if batch_layout else b_specs
     opt = bundle.optimizer
     opt_state = opt.init(params)
     o_specs = make_param_specs(opt_state, bundle.rules_for_opt())
-    o_layout = whole(o_specs) if whole_params else o_specs
 
     def full_loss(p, batch):
         if not microbatch:
@@ -176,12 +183,14 @@ def build_plan_generic(bundle, mesh, multi_pod, *, shape_name,
                                    preserve_rng_state=False)
         return acc / microbatch
 
-    loss_and_grads, train_step = train_fns(opt, full_loss, mesh, p_layout)
+    loss_and_grads, train_step = train_fns(opt, full_loss, mesh, p_specs,
+                                           axes if megatron else None)
     return CellPlan(fn=train_step, args=(params, opt_state, batch),
                     in_specs=(p_specs, o_specs, b_specs),
                     out_specs=(p_specs, o_specs, P()), donate=(0, 1),
                     grads=loss_and_grads,
-                    layout=(p_layout, o_layout, b_layout))
+                    layout=None if batch_layout is None else
+                    (p_specs, o_specs, batch_layout(b_specs)))
 
 
 def per_sample_flops(flops_per_sample: float) -> dict[str, float]:

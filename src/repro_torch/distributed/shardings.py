@@ -173,16 +173,19 @@ def replicate(params):
     return tree.tree_map(lambda _: P(), params)
 
 
-def sync_grads(mesh, grads, specs):
+def sync_grads(mesh, grads, specs, axes=None):
     """Sum each gradient block over the mesh axes its spec leaves out: the
     rule ``shard_map(check_vma=False)`` applies to an input's cotangent, so
     that a replicated parameter gets the gradient of every rank's work. A
     row-sharded table is summed over ``data``, a replicated MLP weight over
-    every axis, a 2D-sharded table over none."""
+    every axis, a 2D-sharded table over none. ``axes`` narrows the sum to
+    those of them it names (the batch axes, where every ``model`` rank
+    already holds the whole cotangent, Megatron's way)."""
     from repro_torch.distributed.mesh import psum
     out = []
     for g, spec in zip(tree.leaves(grads), tree.flatten_up_to(grads, specs),
                        strict=True):
-        axes = unmentioned(mesh, spec)
-        out.append(psum(g, mesh, axes) if axes else g)
+        left = tuple(a for a in unmentioned(mesh, spec)
+                     if axes is None or a in axes)
+        out.append(psum(g, mesh, left) if left else g)
     return tree.unflatten(grads, out)

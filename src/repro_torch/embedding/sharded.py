@@ -22,9 +22,17 @@ table block's gradient is the block of the reference's ``jax.grad`` once
 ``shardings.sync_grads`` has summed it over the axes the table is
 replicated on.
 
-Ids out of range follow the reference's ``shard_map`` bodies, not the
-single-device routes' clamp (``embedding.layout.lookup``). An id below 0 or
-at or past V is owned by no shard, so (read on 2 gloo ranks):
+``row_parallel_lookup`` and ``vocab_parallel_nll`` are the vocab-parallel
+pair of the models whose activations stay replicated over ``model``
+(Megatron's layout: the LM's embedding and loss, DIN's and BERT4Rec's item
+tables): a masked lookup and a logsumexp across vocab blocks, summed by
+``reduce_from``, so that every ``model`` rank holds the whole cotangent.
+They clamp an id into the table first, the single-device contract.
+
+Ids out of range in the bags follow the reference's ``shard_map``
+bodies, not the single-device routes' clamp (``embedding.layout.lookup``).
+An id below 0 or at or past V is owned by no shard, so (read on 2 gloo
+ranks):
 
   * without a remap (``sharded_embedding_bag``, and the 2D bag without
     ``rank_of``) every rank zeroes its row: the bag leaves that id out;
@@ -37,8 +45,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.mesh import (Mesh, all_gather, psum,
-                                          psum_scatter, shard_map)
+from repro_torch.distributed.mesh import (Mesh, all_gather, pmax, psum,
+                                          psum_scatter, reduce_from,
+                                          shard_map)
+from repro_torch.embedding.layout import lookup
 
 
 def local_shard_lookup(local_table: torch.Tensor, indices: torch.Tensor,
@@ -53,6 +63,47 @@ def local_shard_lookup(local_table: torch.Tensor, indices: torch.Tensor,
     vecs = torch.index_select(local_table, 0, clamped.reshape(-1))
     vecs = vecs.reshape(*clamped.shape, local_table.shape[-1])
     return torch.where(ok[..., None], vecs, vecs.new_zeros(()))
+
+
+def row_parallel_lookup(block: torch.Tensor, ids: torch.Tensor,
+                        mesh: Mesh | None, axis: str = "model"
+                        ) -> torch.Tensor:
+    """The rows of a table row-sharded over ``axis`` at global ``ids``
+    (any shape), whole on every rank of ``axis``: ``block`` is this rank's
+    ``(n_rows / n, ...)`` rows. Each id is clamped into the table first
+    (the port's one contract, ``embedding.layout.lookup``), then shifted
+    to the block, and a row the rank does not own is zeroed; the rows are
+    summed over ``axis`` by ``reduce_from`` (the vocab-parallel embedding:
+    its cotangent reaches each rank whole, so a block's gradient is the
+    rank's own rows' share). No shortcut at one rank: there the sum is
+    over the one block. Without a mesh ``block`` is the whole table."""
+    if mesh is None:
+        return lookup(block, ids)
+    n_loc = block.shape[0]
+    local = ids.clamp(0, n_loc * mesh.axis_size(axis) - 1) \
+        - mesh.axis_index(axis) * n_loc
+    rows = lookup(block, local)
+    rows = torch.where(((local >= 0) & (local < n_loc))[..., None], rows, 0)
+    return reduce_from(rows, mesh, axis)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       mesh: Mesh, axis: str = "model") -> torch.Tensor:
+    """The NLL of ``targets`` (global ids, any shape) under logits whose
+    last dim is this rank's block of a vocab split over ``axis``: the
+    logsumexp across the blocks (the max by ``pmax``, the sum of exps by
+    ``reduce_from``) less the target's logit, taken on the rank that owns
+    the target (the target clamped into the vocab as an id is) and summed
+    over ``axis``. Same shape as ``targets``, whole on every rank."""
+    n_loc = logits.shape[-1]
+    m = pmax(logits.amax(-1, keepdim=True), mesh, axis)
+    lse = m[..., 0] + torch.log(reduce_from(
+        torch.exp(logits - m).sum(-1), mesh, axis))
+    local = targets.long().clamp(0, n_loc * mesh.axis_size(axis) - 1) \
+        - mesh.axis_index(axis) * n_loc
+    own = (local >= 0) & (local < n_loc)
+    tl = logits.gather(-1, local.clamp(0, n_loc - 1)[..., None])[..., 0]
+    return lse - reduce_from(torch.where(own, tl, 0.0), mesh, axis)
 
 
 def _pool(vecs: torch.Tensor, bag: int, mode: str) -> torch.Tensor:

@@ -19,12 +19,14 @@ with a fake group of its own. A cell that fails (a block that does not divide, a
 function that refuses its blocks) is a bug in the port: the run exits
 nonzero if any non-skipped cell fails.
 
-The per-rank numbers follow the port's layout: the LM's cells hold and
-compute the reference's blocks (``configs.lm_common``: Megatron TP, FSDP,
-the sequence-split caches), so their collectives, the TP gathers and
-all-reduces included, are in the wire bytes; DIN and BERT4Rec hold their
-params whole on every rank (``configs.recsys_common``), so their flops,
-bytes and peak memory per rank are what that layout costs.
+The per-rank numbers follow the port's layout, which is the reference's
+for every cell: the LM's cells hold and compute the reference's blocks
+(``configs.lm_common``: Megatron TP, FSDP, the sequence-split caches), the
+recsys cells their row blocks of the tables (``configs.recsys_common``:
+the DLRMs' masked-psum SLS; DIN's and BERT4Rec's item tables row-sharded
+over ``model``, looked up by masked lookups summed over it, BERT4Rec's
+tied output on the rank's vocab block), so their collectives are in the
+wire bytes.
 """
 
 from __future__ import annotations

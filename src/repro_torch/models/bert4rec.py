@@ -14,6 +14,21 @@ writes it: the attention's softmax in float32, cast back; ``jax.nn.gelu``'s
 default, the tanh approximation; the reference's ``layer_norm``. An item id
 out of range is clamped (``embedding.layout.lookup``), where the
 reference's ``jnp.take`` fills.
+
+Under a ``distributed.mesh.Mesh`` (``mesh=``) each rank holds its ``(n_items
+/ n, D)`` row block of ``items`` (the reference's ``P("model", None)``,
+``src/repro/configs/bert4rec_arch.py:21``) and its rows of the batch, the
+rest of the params whole. The input lookup is
+``embedding.sharded.row_parallel_lookup`` (a masked local lookup summed
+over ``model``), the encoder runs replicated over ``model``, and the tied
+output product runs on the rank's vocab block: the cloze loss takes its
+logsumexp and the target's logit across the blocks
+(``embedding.sharded.vocab_parallel_nll``), ``score`` gathers the blocks'
+logits over ``model``. The hidden state enters the product through
+``in_boundary``, so that each rank's cotangent of it is the sum of every
+block's, and each ``model`` rank holds the whole cotangent of the
+encoder: a param's gradient block is the rank's rows' share, to be summed
+over the batch axes only (``configs.recsys_common``).
 """
 
 from __future__ import annotations
@@ -24,7 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.embedding.layout import lookup
+from repro_torch.distributed.mesh import (all_gather, in_boundary,
+                                          out_boundary, psum)
+from repro_torch.distributed.shardings import P
+from repro_torch.embedding.sharded import (row_parallel_lookup,
+                                           vocab_parallel_nll)
 from repro_torch.models.common import (dense, dense_init, layer_norm,
                                        ln_init, make_generator, normal_init)
 
@@ -73,14 +92,24 @@ def init(seed: int, cfg: Bert4RecConfig, dtype=torch.float32,
     return params
 
 
+def _item_logits(params, h: torch.Tensor, mesh) -> torch.Tensor:
+    """h (..., D) against the tied item matrix: (..., n_items), under a mesh
+    the rank's vocab block (..., n_items / n), ``h`` through
+    ``in_boundary``."""
+    if mesh is None:
+        return h @ params["items"].T
+    return in_boundary(h, mesh, "model") @ params["items"].T
+
+
 def encode(params, items: torch.Tensor, pad_mask: torch.Tensor,
-           cfg: Bert4RecConfig) -> torch.Tensor:
+           cfg: Bert4RecConfig, mesh=None) -> torch.Tensor:
     """items (B,T) int, pad_mask (B,T) bool -> hidden (B,T,D). Every
     position attends to every unpadded one (bidirectional)."""
     b, t = items.shape
     d, h = cfg.embed_dim, cfg.n_heads
     dh = d // h
-    x = lookup(params["items"], items) + params["pos"][None, :t]
+    x = row_parallel_lookup(params["items"], items, mesh) \
+        + params["pos"][None, :t]
     for blk in params["blocks"]:
         q = dense(blk["wq"], x).reshape(b, t, h, dh)
         k = dense(blk["wk"], x).reshape(b, t, h, dh)
@@ -98,43 +127,59 @@ def encode(params, items: torch.Tensor, pad_mask: torch.Tensor,
                       params["final_ln"]["beta"])
 
 
-def cloze_terms(params, batch, cfg: Bert4RecConfig
+def cloze_terms(params, batch, cfg: Bert4RecConfig, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The cloze loss's two sums: the NLL over the valid masked positions,
-    and their count (``loss`` is the one over the other, at least 1)."""
-    hidden = encode(params, batch["items"], batch["pad_mask"], cfg)
+    and their count (``loss`` is the one over the other, at least 1); under
+    a mesh the rank's rows' sums, the logits on its vocab block."""
+    hidden = encode(params, batch["items"], batch["pad_mask"], cfg, mesh)
     h = torch.take_along_dim(hidden, batch["mask_pos"][..., None].long(),
                              dim=1)                         # (B, M, D)
-    logits = (h @ params["items"].T).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.take_along_dim(logp, batch["targets"][..., None].long(),
-                                dim=-1)[..., 0]
+    logits = _item_logits(params, h, mesh).float()
+    if mesh is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.take_along_dim(logp, batch["targets"][..., None].long(),
+                                    dim=-1)[..., 0]
+    else:
+        nll = vocab_parallel_nll(logits, batch["targets"], mesh)
     m = batch["target_mask"].float()
     return (nll * m).sum(), m.sum()
 
 
-def loss(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
+def loss(params, batch, cfg: Bert4RecConfig, mesh=None, axes=("data",)
+         ) -> torch.Tensor:
     """Cloze loss over gathered masked positions.
 
     batch: items (B,T) with [mask] inserted, mask_pos (B,M) int positions,
     targets (B,M) true ids at those positions, target_mask (B,M) bool
     (valid entries), pad_mask (B,T) bool. Only the M gathered positions
     are scored against the vocabulary: (B, M, V) logits, not (B, T, V).
+    Under a mesh the whole batch's loss: the NLL sum and the count each
+    summed over ``axes``, the ratio's cotangent divided over ``axes`` alone
+    (``out_boundary`` of a ``P("model")`` output).
     """
-    nll, count = cloze_terms(params, batch, cfg)
-    return nll / torch.clamp_min(count, 1.0)
+    nll, count = cloze_terms(params, batch, cfg, mesh)
+    if mesh is None:
+        return nll / torch.clamp_min(count, 1.0)
+    ratio = psum(nll, mesh, axes) / torch.clamp_min(psum(count, mesh, axes),
+                                                    1.0)
+    return out_boundary(ratio, mesh, P("model"))
 
 
-def score(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
+def score(params, batch, cfg: Bert4RecConfig, mesh=None) -> torch.Tensor:
     """Next-item scores for serving: (B, n_items) logits of the last
-    (mask-appended) position."""
-    hidden = encode(params, batch["items"], batch["pad_mask"], cfg)
-    return hidden[:, -1] @ params["items"].T
+    (mask-appended) position; under a mesh the rank's rows, the vocab
+    blocks gathered over ``model``."""
+    hidden = encode(params, batch["items"], batch["pad_mask"], cfg, mesh)
+    logits = _item_logits(params, hidden[:, -1], mesh)
+    return logits if mesh is None else all_gather(logits, mesh, "model", -1)
 
 
-def retrieval_score(params, batch, cfg: Bert4RecConfig) -> torch.Tensor:
-    """One user vs N candidate item ids (``candidates`` (N,)) -> (N,)."""
-    hidden = encode(params, batch["items"], batch["pad_mask"], cfg)
+def retrieval_score(params, batch, cfg: Bert4RecConfig, mesh=None
+                    ) -> torch.Tensor:
+    """One user vs N candidate item ids (``candidates`` (N,)) -> (N,);
+    under a mesh the rank's block of the candidates."""
+    hidden = encode(params, batch["items"], batch["pad_mask"], cfg, mesh)
     last = hidden[:, -1]                                    # (1, D)
-    cands = lookup(params["items"], batch["candidates"])
+    cands = row_parallel_lookup(params["items"], batch["candidates"], mesh)
     return (last @ cands.T)[0]

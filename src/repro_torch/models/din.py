@@ -15,6 +15,16 @@ clamped into ``[0, n_items)`` (``embedding.layout.lookup``), where the
 reference's ``jnp.take`` fills. ``retrieval_score`` takes the candidates in
 chunks (``RETRIEVAL_CHUNK``), so that its memory does not grow with their
 number.
+
+Under a ``distributed.mesh.Mesh`` (``mesh=``) each rank holds its ``(n_items
+/ n, D)`` row block of ``items`` (the reference's ``P("model", None)``,
+``src/repro/configs/din_arch.py:17``) and its rows of the batch; every
+lookup is ``embedding.sharded.row_parallel_lookup``, a masked local lookup
+summed over ``model``, after which the attention and the MLPs run
+replicated over ``model``. Each ``model`` rank then holds the whole
+cotangent of those activations, so a param's gradient block is the rank's
+rows' share, to be summed over the batch axes only
+(``configs.recsys_common``).
 """
 
 from __future__ import annotations
@@ -24,7 +34,9 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.embedding.layout import lookup
+from repro_torch.distributed.mesh import out_boundary, psum
+from repro_torch.distributed.shardings import P
+from repro_torch.embedding.sharded import row_parallel_lookup
 from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
                                        mlp_init, uniform_init)
 
@@ -87,40 +99,54 @@ def _target_attention(params, hist: torch.Tensor, target: torch.Tensor,
     return torch.einsum("...l,...ld->...d", w, hist)
 
 
-def forward(params, batch, cfg: DINConfig) -> torch.Tensor:
+def forward(params, batch, cfg: DINConfig, mesh=None) -> torch.Tensor:
     """batch: hist (B,L) int, hist_mask (B,L) bool, target (B,) int,
-    profile (B,n_profile) float -> logits (B,)."""
-    hist = lookup(params["items"], batch["hist"])              # (B,L,D)
-    target = lookup(params["items"], batch["target"])          # (B,D)
+    profile (B,n_profile) float -> logits (B,); under a mesh the rank's
+    rows of each."""
+    items = params["items"]
+    hist = row_parallel_lookup(items, batch["hist"], mesh)         # (B,L,D)
+    target = row_parallel_lookup(items, batch["target"], mesh)     # (B,D)
     pooled = _target_attention(params, hist, target, batch["hist_mask"])
     feat = torch.cat([pooled, target, pooled * target, batch["profile"]],
                      dim=-1)
     return mlp(params["mlp"], feat)[:, 0]
 
 
-def loss(params, batch, cfg: DINConfig) -> torch.Tensor:
+def loss(params, batch, cfg: DINConfig, mesh=None, axes=("data",)
+         ) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``labels``
     (``models.common.bce_with_logits``: the reference's formula and its
-    gradient at a zero logit)."""
-    return torch.mean(bce_with_logits(forward(params, batch, cfg),
+    gradient at a zero logit). Under a mesh the whole batch's mean, the
+    mean of the ranks' equal blocks over ``axes``, its cotangent divided
+    over ``axes`` alone (``out_boundary`` of a ``P("model")`` output), so
+    that each rank's backward is its rows' share of the mean."""
+    part = torch.mean(bce_with_logits(forward(params, batch, cfg, mesh),
                                       batch["labels"]))
+    if mesh is None:
+        return part
+    return out_boundary(psum(part, mesh, axes) / mesh.axis_size(axes), mesh,
+                        P("model"))
 
 
-def retrieval_score(params, batch, cfg: DINConfig) -> torch.Tensor:
+def retrieval_score(params, batch, cfg: DINConfig, mesh=None
+                    ) -> torch.Tensor:
     """One user vs N candidates: target attention per candidate.
 
     batch: hist (1,L), hist_mask (1,L), profile (1,P), candidates (N,).
     The user's history is broadcast over the candidates (a stride-0 view),
     ``RETRIEVAL_CHUNK`` candidates at a time; each candidate's score is
     computed from its own row alone, so the chunks change no result, only
-    the peak memory. Returns (N,) logits.
+    the peak memory. Returns (N,) logits. Under a mesh ``candidates`` are
+    the rank's block, the same on every rank of ``model``, so the ranks of
+    a ``model`` group run the same chunks and collectives.
     """
-    hist = lookup(params["items"], batch["hist"][0])           # (L,D)
+    hist = row_parallel_lookup(params["items"], batch["hist"][0],
+                               mesh)                           # (L,D)
     mask = batch["hist_mask"][0]
     prof = batch["profile"]
     out = []
     for ids in batch["candidates"].split(RETRIEVAL_CHUNK):
-        cands = lookup(params["items"], ids)                   # (n,D)
+        cands = row_parallel_lookup(params["items"], ids, mesh)  # (n,D)
         n = cands.shape[0]
         pooled = _target_attention(params, hist.expand(n, *hist.shape),
                                    cands, mask.expand(n, mask.shape[0]))

@@ -78,10 +78,12 @@ from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.distributed.mesh import (Mesh, all_gather, gather_blocks,
                                           in_boundary, out_boundary,
-                                          own_block, pmax, psum, reduce_from,
+                                          own_block, psum, reduce_from,
                                           respec)
 from repro_torch.distributed.shardings import P, mentioned
 from repro_torch.embedding.layout import lookup
+from repro_torch.embedding.sharded import (row_parallel_lookup,
+                                           vocab_parallel_nll)
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (decode_attention,
@@ -576,12 +578,7 @@ def _embed(params, tokens, mesh=None, specs=None):
     table = respec(params["embed"], mesh, s, _megatron(s))
     if not _tp(s):
         return lookup(table, tokens)
-    n_loc = table.shape[0]
-    ids = tokens.clamp(0, n_loc * mesh.axis_size("model") - 1) \
-        - mesh.axis_index("model") * n_loc
-    rows = lookup(table, ids)
-    rows = torch.where(((ids >= 0) & (ids < n_loc))[..., None], rows, 0)
-    return reduce_from(rows, mesh, "model")
+    return row_parallel_lookup(table, tokens, mesh)
 
 
 def _head(params, mesh, specs):
@@ -649,16 +646,7 @@ def _ce_sum_sharded(head, mesh, h, tgt, w):
     max, a sum and the target's logit summed over ``model``; the target
     clamped into the vocab as an id is)."""
     logits = (in_boundary(h, mesh, "model") @ head).float()
-    n_loc = logits.shape[-1]
-    m = pmax(logits.amax(-1, keepdim=True), mesh, "model")
-    lse = m[..., 0] + torch.log(reduce_from(
-        torch.exp(logits - m).sum(-1), mesh, "model"))
-    local = tgt.long().clamp(0, n_loc * mesh.axis_size("model") - 1) \
-        - mesh.axis_index("model") * n_loc
-    own = (local >= 0) & (local < n_loc)
-    tl = logits.gather(-1, local.clamp(0, n_loc - 1)[..., None])[..., 0]
-    tl = reduce_from(torch.where(own, tl, 0.0), mesh, "model")
-    return ((lse - tl) * w).sum()
+    return (vocab_parallel_nll(logits, tgt, mesh) * w).sum()
 
 
 def chunked_ce(params, hidden, targets, cfg: LMConfig, t_chunk: int = 512,

@@ -744,3 +744,83 @@ def test_lm_mesh_cp_train_step_vs_mesh_free(gen, nccl_mesh):
                                  for p in plans]
     for a, b in zip(tree.leaves(new), tree.leaves(wnew), strict=True):
         torch.testing.assert_close(a, b, **_recsys_tol())
+
+
+def _recsys_batch(like: dict, n_items: int, seq_len: int, gen) -> dict:
+    """Random inputs on the card of a recsys plan's batch of meta tensors:
+    ids in the item range (``mask_pos`` in the sequence), masks, labels
+    and profiles."""
+    out = {}
+    for k, x in like.items():
+        shape = tuple(x.shape)
+        if x.dtype == torch.bool:
+            out[k] = torch.rand(shape, generator=gen, device="cuda") < 0.8
+        elif not x.is_floating_point():
+            hi = seq_len if k == "mask_pos" else n_items
+            out[k] = torch.randint(0, hi, shape, generator=gen,
+                                   device="cuda", dtype=x.dtype)
+        elif k == "labels":
+            out[k] = (torch.rand(shape, generator=gen, device="cuda")
+                      < 0.4).float()
+        else:
+            out[k] = torch.randn(shape, generator=gen, device="cuda")
+    return out
+
+
+@pytest.mark.parametrize("arch", ["din", "bert4rec"])
+def test_item_sharded_plans_vs_mesh_free(gen, nccl_mesh, monkeypatch, arch):
+    """DIN's and BERT4Rec's registry plans at narrow width under a (1, 1)
+    NCCL mesh (the item table's row block, the masked lookups summed over
+    ``model``, BERT4Rec's sharded logsumexp and score gather, run at one
+    rank) against the same plans without a mesh: every serve cell's
+    output, and the train cell's loss, gradients, updated params and
+    optimizer state."""
+    from repro_torch import configs, tree
+    from repro_torch.configs import bert4rec_arch, din_arch, recsys_common
+    from repro_torch.models import bert4rec, din
+    if arch == "din":
+        cfg = din.DINConfig(n_items=4000, seq_len=20)
+        monkeypatch.setattr(din_arch, "CONFIG", cfg)
+    else:
+        cfg = bert4rec.Bert4RecConfig(n_items=1024, seq_len=24)
+        monkeypatch.setattr(bert4rec_arch, "CONFIG", cfg)
+    for cell, shp in {"train_batch": dict(batch=64),
+                      "serve_p99": dict(batch=32),
+                      "serve_bulk": dict(batch=128),
+                      "retrieval_cand": dict(batch=1, n_candidates=500)
+                      }.items():
+        monkeypatch.setitem(recsys_common.RECSYS_SHAPES, cell, shp)
+    bundle = configs.get_arch(arch)
+    params = _on_card(bundle.init(0, device="cpu"))
+    for cell, step in bundle.steps.items():
+        plans = [step.make_fn(bundle, m, False) for m in (nccl_mesh, None)]
+        batch = _recsys_batch(plans[1].args[-1], cfg.n_items, cfg.seq_len,
+                              gen)
+        nccl_mesh.calls.clear()
+        if step.kind == "serve":
+            with torch.inference_mode():
+                got, want = [p.fn(params, batch) for p in plans]
+            torch.testing.assert_close(got, want, **_recsys_tol())
+        else:
+            # BERT4Rec's mesh loss is the sharded logsumexp less the
+            # target's logit where the mesh-free one is log_softmax: other
+            # roundings, held at the f32 gradient tolerance of the 8-rank
+            # tests (tests/test_torch_registry_mesh.py)
+            tol = dict(rtol=1e-4, atol=1e-4)
+            (loss, grads), (wloss, wgrads) = [p.grads(params, batch)
+                                              for p in plans]
+            torch.testing.assert_close(loss, wloss, **_recsys_tol())
+            for a, b in zip(tree.leaves(grads), tree.leaves(wgrads),
+                            strict=True):
+                torch.testing.assert_close(a, b, **tol)
+            # the step from a state far from zero moments: AdamW's first
+            # step from them is sign(g), which rounding flips
+            state = tree.tree_map(
+                lambda x: torch.rand(x.shape, generator=gen, device="cuda")
+                + 0.5 if x.is_floating_point() else x,
+                bundle.optimizer.init(params))
+            got, want = [p.fn(params, state, batch) for p in plans]
+            for a, b in zip(tree.leaves(got[:2]), tree.leaves(want[:2]),
+                            strict=True):
+                torch.testing.assert_close(a, b, **tol)
+        assert nccl_mesh.calls["all_reduce"] >= 1, cell

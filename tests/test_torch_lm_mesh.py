@@ -308,11 +308,11 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch import tree
-    from repro_torch.configs.lm_common import _data_parallel_sum
     from repro_torch.distributed import mesh as M
     from repro_torch.distributed.shardings import (P, NamedSharding,
                                                    block_index,
-                                                   make_param_specs)
+                                                   make_param_specs,
+                                                   sync_grads)
     from repro_torch.models import lm, mla, moe
     from repro_torch.models.common import make_generator
 
@@ -344,8 +344,8 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
         leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
         val, aux = fn(tree.unflatten(params, leaves))
         grads = torch.autograd.grad(val, leaves, materialize_grads=True)
-        grads = _data_parallel_sum(list(grads), tree.leaves(specs), mesh,
-                                   ("data",))
+        grads = sync_grads(mesh, list(grads), tree.leaves(specs),
+                           ("data",))
         return val.detach(), aux, dict(zip(
             [p for p, _ in tree.flatten_with_path(params)], grads,
             strict=True))

@@ -241,6 +241,34 @@ def test_dryrun_cli_runs_single_pod(tmp_path):
     assert "7 ok / 1 skip / 0 fail" in r.stdout
 
 
+@pytest.mark.parametrize("name", ["din", "bert4rec"])
+def test_dryrun_counts_item_row_blocks(name):
+    """DIN's and BERT4Rec's dry-run rows on the 16 x 16 mesh count the
+    reference's layout: rank 0 holds a 1/16 row block of ``items`` (and of
+    its row-wise accumulator in the train cell), the MLPs whole, and every
+    serve cell puts the masked lookups' sums (and BERT4Rec's score
+    gather) on the wire."""
+    M.init("meta", rank=0, world_size=256)
+    try:
+        mesh = make_production_mesh(device="meta")
+        bundle = configs.get_arch(name)
+        n, d = bundle.cfg.n_items, bundle.cfg.embed_dim
+        for shape, step in bundle.steps.items():
+            plan = step.make_fn(bundle, mesh, False)
+            assert plan.layout is None
+            blocks = dryrun.rank_blocks(mesh, plan.args, plan.local_specs())
+            assert tuple(blocks[0]["items"].shape) == (n // 16, d)
+            if step.kind == "train":
+                acc = blocks[1]["table"]["['items']"]
+                assert tuple(acc.shape) == (n // 16,)
+            rec = dryrun.run_cell(bundle, shape, mesh, False)
+            assert rec["status"] == "ok", rec
+            wire = rec["roofline"]["wire_bytes_per_device"]
+            assert wire > 0, (shape, wire)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_every_cell_builds_its_plan_on_the_fake_production_mesh():
     """Every non-skipped (arch x shape) builds its plan on the fake 256-rank
     mesh, with one spec per argument leaf and a block for rank 0 (the

@@ -6,24 +6,31 @@ mesh, at narrow widths and cut batches (``_narrow``).
 The cases (``CASES``): dlrm-mlperf's ``serve_p99`` and ``train_batch`` in
 the registry's own layout (``hybrid`` dense sharding with 2D row-sharded
 tables to train, 1D tables to serve; its tables' rows divide the 8-way
-(model x data) grid), and the train cells whose mesh path is the port's
-own: DIN's (the params whole on every rank, the loss the whole batch's
-mean), BERT4Rec's (16 checkpointed microbatches, the cloze loss a ratio of
-sums over the batch axes) and GraphSAGE's ``ogb_products`` (the edges
-sharded over ``data``, each segment sum summed across them). The reference
-writes each output whole; each rank of the port writes what its plan's
-``fn`` returns, and each test holds a rank's output against the
-reference's block at the rank's mesh coordinate under the port's layout
-(``CellPlan.local_specs``: the params' blocks, whole where the model holds
-them whole; the logits' rows).
+(model x data) grid); DIN's and BERT4Rec's ``train_batch``, ``serve_p99``
+and ``retrieval_cand`` with their item tables row-sharded over ``model``
+(each rank holds its row block of ``items`` and of its row-wise adagrad
+accumulator; masked lookups summed over ``model``, BERT4Rec's tied output
+and cloze loss on the rank's vocab block, its 16 checkpointed
+microbatches; DIN's retrieval in chunks of ``DIN_CHUNK`` candidates, so
+that its chunk loop runs collectives); and GraphSAGE's
+``ogb_products`` (the edges sharded over ``data``, each segment sum summed
+across them). The reference writes each output whole; each rank of the
+port writes what its plan's ``fn`` returns, and each test holds a rank's
+output against the reference's block at the rank's mesh coordinate under
+the plan's specs (``CellPlan.local_specs``: the params' and the optimizer
+state's blocks; the logits' rows). DIN's and BERT4Rec's train gradients
+(``CellPlan.grads``, after the sum over the batch axes) are held as well,
+against the reference plan's gradients: a one-step update at their
+learning rates moves a param too little to show a wrong gradient.
 
 This file is also the script both sides run:
 
     python tests/test_torch_registry_mesh.py jax|port INPUTS.npz OUT_DIR
 
-Tolerances (f32): the logits ``rtol=1e-5, atol=1e-6`` (the SLS's psums
-and the hybrid reduce-scatter add in other orders); the loss, every updated
-param and every optimizer-state leaf after one step ``atol=1e-5``.
+Tolerances (f32): the logits and scores ``rtol=1e-5, atol=1e-6`` (the
+SLS's psums, the hybrid reduce-scatter and the sharded logsumexp add in
+other orders); the loss, every updated param and every optimizer-state
+leaf after one step ``atol=1e-5``; the gradients ``atol=1e-4``.
 """
 
 from __future__ import annotations
@@ -42,17 +49,24 @@ N_DEV = 8
 MESH = (2, 4)
 AXES = ("data", "model")
 CASES = [("dlrm-mlperf", "serve_p99"), ("dlrm-mlperf", "train_batch"),
-         ("din", "train_batch"), ("bert4rec", "train_batch"),
+         ("din", "train_batch"), ("din", "serve_p99"),
+         ("din", "retrieval_cand"), ("bert4rec", "train_batch"),
+         ("bert4rec", "serve_p99"), ("bert4rec", "retrieval_cand"),
          ("graphsage-reddit", "ogb_products")]
+# the train cells whose gradients are held too
+GRAD_ARCHS = ("din", "bert4rec")
 NARROW_DLRM = dict(name="narrow", dim=8, bot=(5, 16, 8), top=(24, 16, 1),
                    vocabs=[64, 128, 8, 96], lookups=3)
-SHAPES = {"train_batch": dict(batch=64), "serve_p99": dict(batch=32)}
+SHAPES = {"train_batch": dict(batch=64), "serve_p99": dict(batch=32),
+          "retrieval_cand": dict(batch=1, n_candidates=48)}
+DIN_CHUNK = 10          # the port's DIN retrieval: 3 chunks of a rank's 24
 NARROW_DIN = dict(n_items=400, seq_len=12, attn_mlp=(8, 4), mlp=(16, 8))
 NARROW_BERT = dict(n_items=208, seq_len=24, embed_dim=16, d_ff=32)
 NARROW_SAGE = dict(d_in=6, n_classes=3, d_hidden=16)
 PRODUCTS = dict(n_nodes=50, n_edges=256, d_feat=6)
 SERVE_TOL = dict(rtol=1e-5, atol=1e-6)
 STEP_TOL = dict(rtol=0, atol=1e-5)
+GRAD_TOL = dict(rtol=0, atol=1e-4)
 
 
 def _narrow(pkg: str):
@@ -67,8 +81,11 @@ def _narrow(pkg: str):
     saved = ({k: shapes[k] for k in SHAPES},
              mod["configs.din_arch"].CONFIG,
              mod["configs.bert4rec_arch"].CONFIG,
-             sage.CFG_PRODUCTS, sage.SHAPES["ogb_products"])
+             sage.CFG_PRODUCTS, sage.SHAPES["ogb_products"],
+             getattr(mod["models.din"], "RETRIEVAL_CHUNK", None))
     shapes.update(SHAPES)
+    if saved[5] is not None:
+        mod["models.din"].RETRIEVAL_CHUNK = DIN_CHUNK
     mod["configs.din_arch"].CONFIG = mod["models.din"].DINConfig(**NARROW_DIN)
     mod["configs.bert4rec_arch"].CONFIG = \
         mod["models.bert4rec"].Bert4RecConfig(**NARROW_BERT)
@@ -81,6 +98,8 @@ def _narrow(pkg: str):
         mod["configs.bert4rec_arch"].CONFIG = saved[2]
         sage.CFG_PRODUCTS = saved[3]
         sage.SHAPES["ogb_products"] = saved[4]
+        if saved[5] is not None:
+            mod["models.din"].RETRIEVAL_CHUNK = saved[5]
     return restore
 
 
@@ -197,7 +216,29 @@ def jax_side(inp_path: str, out_dir: str) -> None:
             out = fn(*args)
         for path, x in tree_flatten_with_path(out)[0]:
             res[f"{arch}/{cell}{keystr(path)}"] = np.asarray(x)
+        if cell == "train_batch" and arch in GRAD_ARCHS:
+            with mesh:
+                grads = _jax_grads(bundle, mesh, named, args)
+            for path, x in tree_flatten_with_path(grads)[0]:
+                res[f"grads/{arch}{keystr(path)}"] = np.asarray(x)
     np.savez(os.path.join(out_dir, "ref.npz"), **res)
+
+
+def _jax_grads(bundle, mesh, named, args):
+    """The reference train plan's gradients at ``args``: the plan run under
+    ``jit`` with an optimizer whose update returns the gradients as the new
+    params (laid out by the params' specs)."""
+    import dataclasses
+
+    import jax
+
+    from repro import optim as joptim
+    opt = bundle.optimizer
+    bundle = dataclasses.replace(bundle, optimizer=joptim.Optimizer(
+        opt.init, lambda g, s, p: (g, s)))
+    plan = bundle.steps["train_batch"].make_fn(bundle, mesh, False)
+    return jax.jit(plan.fn, in_shardings=named(plan.in_specs),
+                   out_shardings=named(plan.out_specs))(*args)[0]
 
 
 # -- the port side (8 gloo processes) ---------------------------------------
@@ -237,6 +278,10 @@ def port_worker(rank: int, inp_path: str, out_dir: str) -> None:
         out = plan.fn(*blocks)
         for path, x in tree.flatten_with_path(out):
             res[f"{arch}/{cell}{path}"] = x.detach().numpy()
+        if cell == "train_batch" and arch in GRAD_ARCHS:
+            grads = plan.grads(blocks[0], blocks[2])[1]
+            for path, x in tree.flatten_with_path(grads):
+                res[f"grads/{arch}{path}"] = x.numpy()
     np.savez(os.path.join(out_dir, f"port_{rank}.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()
@@ -289,21 +334,26 @@ def _out_specs(arch: str, cell: str) -> dict:
     restore = _narrow("repro_torch")
     try:
         bundle = _bundle("repro_torch", arch)
-        plan = bundle.steps[cell].make_fn(bundle, None, False)
+        plan = bundle.steps["train_batch" if cell == "grads" else cell] \
+            .make_fn(bundle, None, False)
     finally:
         restore()
+    if cell == "grads":
+        return {f"grads/{arch}{p}": s
+                for p, s in tree.flatten_with_path(plan.in_specs[0])}
     specs = (plan.out_specs if len(plan.args) == 2 else
              (*plan.local_specs()[:2], P()))
     return {f"{arch}/{cell}{p}": s for p, s in tree.flatten_with_path(specs)}
 
 
 def _pairs(runs, arch: str, cell: str):
-    """(path, port output, reference block) at every rank's coordinate."""
+    """(path, port output, reference block) at every rank's coordinate;
+    ``cell`` "grads" for the train plan's gradients."""
     from repro_torch.distributed.shardings import block_index
     ref, ranks = runs
     specs = _out_specs(arch, cell)
-    assert sorted(specs) == sorted(k for k in ref
-                                   if k.startswith(f"{arch}/{cell}"))
+    prefix = f"grads/{arch}[" if cell == "grads" else f"{arch}/{cell}"
+    assert sorted(specs) == sorted(k for k in ref if k.startswith(prefix))
     out = []
     for got in ranks:
         coord = dict(zip(AXES, got["coord"].tolist(), strict=True))
@@ -325,17 +375,52 @@ def test_dlrm_serve_p99_plan_matches_reference(runs):
 
 
 @pytest.mark.parametrize("arch,cell", [c for c in CASES
-                                       if c[1] != "serve_p99"])
+                                       if c[0] in GRAD_ARCHS
+                                       and c[1] != "train_batch"])
+def test_item_sharded_serve_plan_matches_reference(runs, arch, cell):
+    """Each rank's rows of DIN's (B,) logits or of BERT4Rec's (B, n_items)
+    scores (the vocab blocks gathered over ``model``), or its block of the
+    candidates' scores."""
+    pairs = _pairs(runs, arch, cell)
+    assert len(pairs) == N_DEV
+    shp = SHAPES[cell]
+    rows = shp.get("n_candidates", shp["batch"]) // MESH[0]
+    for key, got, want in pairs:
+        assert got.shape == want.shape, key
+        assert got.shape[0] == rows, key
+        np.testing.assert_allclose(got, want, err_msg=key, **SERVE_TOL)
+
+
+@pytest.mark.parametrize("arch,cell", [c for c in CASES
+                                       if c[1] not in ("serve_p99",
+                                                       "retrieval_cand")])
 def test_train_plan_matches_reference(runs, arch, cell):
     """The loss, every updated param and every optimizer-state leaf after
     one step: dlrm-mlperf's 2D table blocks and row-wise accumulators, the
-    replicated MLPs and AdamW moments; DIN's and BERT4Rec's whole item
-    tables; GraphSAGE's replicated weights."""
+    replicated MLPs and AdamW moments; DIN's and BERT4Rec's row blocks of
+    ``items`` and of their accumulators (a quarter of the rows each);
+    GraphSAGE's replicated weights."""
+    ref = runs[0]
     for key, got, want in _pairs(runs, arch, cell):
         assert got.shape == want.shape, key
+        if arch in GRAD_ARCHS and "items" in key:
+            assert got.shape[0] * MESH[1] == ref[key].shape[0], key
         np.testing.assert_allclose(got.astype(np.float64),
                                    want.astype(np.float64), err_msg=key,
                                    **STEP_TOL)
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_train_grad_blocks_match_reference(runs, arch):
+    """DIN's and BERT4Rec's train gradients (``CellPlan.grads``: each
+    rank's blocks after the sum over the batch axes, ``items`` its row
+    block) against the reference plan's ``jax.grad`` at the rank's
+    coordinate."""
+    pairs = _pairs(runs, arch, "grads")
+    assert any(k.endswith("['items']") for k, _, _ in pairs)
+    for key, got, want in pairs:
+        assert got.shape == want.shape, key
+        np.testing.assert_allclose(got, want, err_msg=key, **GRAD_TOL)
 
 
 if __name__ == "__main__":
