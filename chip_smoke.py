@@ -3,13 +3,17 @@
 
 Phases, each of which fails the run when it fails:
 
-1. build: ``nvcc`` compiles both kernels from ``src/repro_torch/kernels/csrc``
-   for sm_90a, one process per source, all at once;
+1. build: ``nvcc`` compiles the three kernels from
+   ``src/repro_torch/kernels/csrc`` for sm_90a, one process per source, all
+   at once (flash attention's 32 template instances take about 25 s);
 2. check: every kernel entry against its plain PyTorch version on the card,
    in f32 and bf16: the per-table SLS (all-hot and all-cold bags) and the
    grouped SLS over 26 tables x 1M rows with rank_of (and without) at the
    dlrm-rm2 serving shapes, the full Gram and the fused interaction at
-   (64, 27, 64) and the reference's odd shape (8, 3, 18);
+   (64, 27, 64) and the reference's odd shape (8, 3, 18); flash
+   attention, forward (out, lse) and backward (dq, dk, dv), at
+   qwen3-1.7b's prefill shape, deepseek's MLA shape (qk 192, v 128, v a
+   split view) and a context-parallel block (explicit q_start);
 3. serve: ``repro_torch.launch.serve`` at dlrm-rm2's published width: a
    ``Deployment`` of 26 tables x 1M rows replays the stream through every
    NAND policy lane on the host (simulated flashsim time, printed as the
@@ -75,10 +79,13 @@ Phases, each of which fails the run when it fails:
    the reference's decode-vs-full property held per arch in float32 at
    full width (MoE archs with capacity = tokens); deepseek's train_loss
    with MTP, forward and backward; the narrow variants card against CPU;
-   ``flash_attention`` beside ``F.scaled_dot_product_attention`` (a
-   yardstick the path never calls); lm-100m training in process and
-   through ``python -m repro_torch.launch.train --model lm``, run and
-   resumed; no launch of either kernel;
+   lm-100m training in process and through ``python -m
+   repro_torch.launch.train --model lm``, run and resumed; the phase's
+   attention runs through the flash attention kernel (forward launches
+   at least its layers times its calls, backward launches in training)
+   and no DLRM kernel; after the counted path, the kernel's times beside
+   the plain version, ``F.scaled_dot_product_attention`` (a yardstick the
+   path never calls) and the bound, bf16 and float32;
 12. lm_mesh: the LM under a (1, 1) ("data", "model") mesh over NCCL at
    world size 1, through the registry's plans (``configs.get_arch``) at
    full width with the depth cut as in phase 11, each against the same
@@ -90,7 +97,8 @@ Phases, each of which fails the run when it fails:
    qwen2-0.5b's context-parallel prefill at (8, 4096) and one step of its
    train plan (sequence sharding, AdamW): logits, caches, loss, every
    gradient and every updated param, the mesh and mesh-free times, the
-   collectives per call and the peak memory; no launch of either kernel;
+   collectives per call and the peak memory; attention through the flash
+   attention kernel, no DLRM kernel;
 13. registry (after recsys): the registry's plans (``configs.get_arch``)
    with mesh None on real tensors at their full shapes: dlrm-mlperf in bf16
    (26 tables, 48.07 GB, and 0.75 GB of rank_of permutations made on the
@@ -120,7 +128,7 @@ Phases, each of which fails the run when it fails:
    each against the same plan without a mesh: outputs, loss, gradients,
    the params and optimizer state after a step; then rank 0's blocks of
    the 16 x 16 mesh on the card under the fake group, per-call time and
-   peak memory beside the dry-run's counted peak; no launch of either
+   peak memory beside the dry-run's counted peak; no launch of any
    kernel;
 16. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
    real tensors on the card, at full width and depth, under the fake
@@ -128,7 +136,8 @@ Phases, each of which fails the run when it fails:
    qwen3-1.7b's train_4k, prefill_32k and decode_32k and
    deepseek-v3-671b's decode_32k through the plans' ``fn``; per-call time
    and peak memory (compute only, collectives not run) beside the
-   dry-run's counted peak; no launch of either kernel.
+   dry-run's counted peak; attention through the flash attention kernel
+   (decode's stays plain), no DLRM kernel.
 
 It prints the card's name and power limit, one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Without a card it exits 1
@@ -168,6 +177,8 @@ from repro_torch.embedding.layout import lookup  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
     dot_interaction, dot_interaction_fused, dot_interaction_fused_backward)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.recflash_sls import (  # noqa: E402
     describe, recflash_sls, recflash_sls_grouped,
     recflash_sls_grouped_backward)
@@ -228,7 +239,11 @@ QUEUED_LAUNCHES = 512
 COUNTERS = {"recflash_sls_grouped": recflash_sls_grouped,
             "dot_interaction_fused": dot_interaction_fused,
             "recflash_sls": recflash_sls,
-            "dot_interaction": dot_interaction}
+            "dot_interaction": dot_interaction,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd}
+DLRM_KERNELS = ("recflash_sls_grouped", "dot_interaction_fused",
+                "recflash_sls", "dot_interaction")
 # logits of the kernel-routed forward against the plain-routed one: the bag
 # and Gram sums differ in order only (bags are ~1e-2, logits ~1)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -381,7 +396,8 @@ def phase_build() -> None:
 
 
 def phase_check(gen: torch.Generator) -> dict[str, float]:
-    """Every kernel entry against its plain version on the card."""
+    """Every kernel entry against its plain version on the card; returns
+    each entry's float32 max abs error at the main path's shapes."""
     h, v, d, b, lk = 2000, 1_000_000, 64, 64, 80
     dev = torch.device("cuda")
     err = {}
@@ -418,6 +434,7 @@ def phase_check(gen: torch.Generator) -> dict[str, float]:
                          ops.fused_ref(x, bags), out_tol(dtype))
             if dtype == torch.float32 and shape == (64, 27, 64):
                 err["dot_interaction"], err["dot_interaction_fused"] = e, ef
+    err.update(phase_attention_check(gen))
     return err
 
 
@@ -500,8 +517,7 @@ def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
         if not np.array_equal(inp["indices"][:b.size].cpu().numpy(), rows):
             raise AssertionError("a scored batch is not the recflash "
                                  "lane's batch")
-    want = {"recflash_sls_grouped": n_b, "dot_interaction_fused": n_b,
-            "recflash_sls": 0, "dot_interaction": 0}
+    want = counts(recflash_sls_grouped=n_b, dot_interaction_fused=n_b)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if res.n_scored != SERVE["requests"]:
@@ -536,6 +552,27 @@ def read_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
+def counts(**launches: int) -> dict[str, int]:
+    """Every counter at 0 but those named: what a path should read."""
+    return {**dict.fromkeys(COUNTERS, 0), **launches}
+
+
+def check_lm_launches(phase: str, launches: dict[str, int], fwd: int,
+                      bwd: int = 0) -> None:
+    """An LM path: no DLRM kernel, and at least ``fwd`` flash attention
+    forward launches (its layers times its calls) and ``bwd`` backward
+    launches (three a backward call)."""
+    print(f"[{phase}] launches of the port's kernels over the phase: "
+          f"{launches}; at least {fwd} attention forward and {bwd} backward "
+          f"launches expected")
+    if any(launches[k] for k in DLRM_KERNELS):
+        raise AssertionError(f"the {phase} path launched a DLRM kernel")
+    if launches["flash_attention_fwd"] < fwd or \
+            launches["flash_attention_bwd"] < bwd:
+        raise AssertionError(f"the {phase} path did not run attention "
+                             f"through the kernel: {launches}")
+
+
 def phase_retrieval(res: serve_mod.ServeResult) -> dict:
     """retrieval_score on the served dlrm-rm2 model: 1 user x 1M candidates,
     launch counts, scores against the plain-routed version, time per
@@ -553,8 +590,8 @@ def phase_retrieval(res: serve_mod.ServeResult) -> dict:
         scores = dlrm.retrieval_score(p, batch, cfg)
         torch.cuda.synchronize()
         launches = read_counts()
-        want = {"recflash_sls_grouped": 1, "dot_interaction_fused": 1,
-                "recflash_sls": 1, "dot_interaction": 0}
+        want = counts(recflash_sls_grouped=1, dot_interaction_fused=1,
+                      recflash_sls=1)
         print(f"[retrieval] 1 user x {N_CANDIDATES} candidates, "
               f"{cfg.n_tables} tables x {cfg.n_rows[0]} rows x "
               f"{cfg.embed_dim}: launches {launches}; peak device memory "
@@ -905,9 +942,8 @@ def phase_train() -> dict:
           f"{[round(x, 2) for x in step_peak]} GiB")
     print(f"[train] checkpoint {ckpt_bytes / 1e9:.3f} GB of .npz in "
           f"{t_ckpt:.2f} s (the loop's time less its steps and batches)")
-    want = {"recflash_sls_grouped": TRAIN_STEPS,
-            "dot_interaction_fused": TRAIN_STEPS, "recflash_sls": 0,
-            "dot_interaction": 0}
+    want = counts(recflash_sls_grouped=TRAIN_STEPS,
+                  dot_interaction_fused=TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1148,8 +1184,7 @@ def phase_sharded(served: dict, card: str) -> dict:
         train_calls = {c: n - before.get(c, 0) for c, n in mesh.calls.items()}
         train_fused = dot_interaction_fused.launches - fused0
         launches = read_counts()
-        want = {"recflash_sls_grouped": 0, "dot_interaction_fused": 4,
-                "recflash_sls": 0, "dot_interaction": 0}
+        want = counts(dot_interaction_fused=4)
         print(f"[sharded] launches over the phase's path (3 mesh forwards, "
               f"1 training step): {launches}")
         if launches != want:
@@ -1399,8 +1434,8 @@ def phase_bf16(res: serve_mod.ServeResult, card: str) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"recflash_sls_grouped": n_b + 2, "dot_interaction_fused": n_b + 2,
-            "recflash_sls": 1, "dot_interaction": 0}
+    want = counts(recflash_sls_grouped=n_b + 2,
+                  dot_interaction_fused=n_b + 2, recflash_sls=1)
     print(f"[bf16] launches over the path ({n_b} serve batches, 1 retrieval, "
           f"1 training step): {launches}; peak device memory {peak:.2f} GiB")
     if launches != want:
@@ -1739,6 +1774,7 @@ REGISTRY_PLAIN_CHUNK = 4096
 REGISTRY_RETRIEVAL_CHUNKS = 4
 # launches of one kernel-route call of a serve / retrieval plan
 SERVE_LAUNCHES = {"recflash_sls_grouped": 1, "dot_interaction_fused": 1,
+                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                   "recflash_sls": 0, "dot_interaction": 0}
 RETRIEVAL_LAUNCHES = {**SERVE_LAUNCHES, "recflash_sls": 1}
 
@@ -2152,8 +2188,21 @@ LM_NARROW_SEQ = 128
 # defaults in process and trains, and runs the CLI, at LM_TRAIN_BATCH
 LM_CLI_BATCH = 256
 LM_TRAIN_BATCH = 64
-# the attention yardstick: qwen3-1.7b's prefill shape, GQA 16/8, d 128
+# flash attention's shapes on the card (causal, as every LM path calls it):
+# qwen3-1.7b's prefill, GQA 16/8, d 128; deepseek-v3's MLA at its lm batch,
+# 128 heads with n_rep 1, qk 192 (nope 128 + rope 64) and v 128 a split
+# view of the up-projected kv (row stride 256); and lm_mesh's
+# context-parallel call of qwen2-0.5b (14/2 heads, d 64) as rank 2 of a
+# 4-way model axis would make it: a quarter of the queries at q_start 2048
+# against every key
 ATTN_SHAPE = dict(b=8, t=LM_SEQ, h=16, kv=8, d=128)
+MLA_SHAPE = dict(b=2, t=LM_SEQ, h=128, kv=128, d=192, dv=128, split_v=True)
+CP_SHAPE = dict(b=8, t=LM_SEQ // 4, s=LM_SEQ, h=14, kv=2, d=64,
+                q_start=LM_SEQ // 2)
+# the kernel against its plain version in float32: the reference's own
+# tolerances (tests/test_torch_attention.py), rtol 0
+ATTN_F32_OUT_TOL = dict(rtol=0, atol=2e-5)
+ATTN_F32_GRAD_TOL = dict(rtol=0, atol=5e-4)
 
 
 def lm_narrow_configs() -> dict:
@@ -2478,57 +2527,225 @@ def lm_card_vs_cpu(card: str) -> float:
     return worst
 
 
-def lm_attention_yardstick(card: str) -> dict:
-    """``flash_attention`` forward and forward + backward at qwen3-1.7b's
-    prefill shape in bf16, beside ``F.scaled_dot_product_attention``
-    (``enable_gqa``) on the same tensors; the path calls no SDPA."""
-    from repro_torch.models.attention import flash_attention
-    s = ATTN_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(5)
+def attn_inputs(shape: dict, dtype: torch.dtype, gen: torch.Generator
+                ) -> tuple[torch.Tensor, ...]:
+    """q, k, v and an output gradient at ``shape``; v a split view of a
+    wider tensor where ``split_v`` (MLA's)."""
+    b, t, h, kv, d = (shape[x] for x in ("b", "t", "h", "kv", "d"))
+    s, dv = shape.get("s", t), shape.get("dv", d)
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16).requires_grad_()
+    def rnd(*size):
+        return torch.randn(size, generator=gen, device="cuda", dtype=dtype)
 
-    q = rnd(s["b"], s["t"], s["h"], s["d"])
-    k, v = rnd(s["b"], s["t"], s["kv"], s["d"]), rnd(s["b"], s["t"],
-                                                     s["kv"], s["d"])
-    dout = torch.randn(q.shape, generator=gen, device="cuda",
-                       dtype=torch.bfloat16)
+    q, k = rnd(b, t, h, d), rnd(b, s, kv, d)
+    v = (rnd(b, s, kv, 128 + dv).split([128, dv], -1)[1]
+         if shape.get("split_v") else rnd(b, s, kv, dv))
+    return q, k, v, rnd(b, t, h, dv)
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    def fwd_bwd(fn):
-        return torch.autograd.grad(fn(q, k, v), (q, k, v), dout)
+def attn_args(shape: dict) -> tuple:
+    """(q_start, causal, q_chunk, kv_chunk, scale) as the LM calls it."""
+    t, s = shape["t"], shape.get("s", shape["t"])
+    return (shape.get("q_start", s - t), True, min(512, t), min(1024, s),
+            shape["d"] ** -0.5)
 
-    with torch.no_grad():
-        ours = flash_attention(q, k, v)
-        lib = sdpa(q, k, v)
-    g_ours, g_lib = fwd_bwd(flash_attention), fwd_bwd(sdpa)
-    err = check_tensors("flash_attention forward, dq, dk, dv vs SDPA's, bf16",
-                        [ours, *g_ours], [lib, *g_lib], LM_ATTN_REL_L2)
-    del ours, lib, g_ours, g_lib
-    pairs = s["b"] * s["h"] * s["t"] * (s["t"] + 1) / 2
-    fwd_flops = 4 * pairs * s["d"]
+
+def attn_work(shape: dict, esize: int) -> dict[str, tuple[float, float]]:
+    """(bytes, operations) the forward and the backward must move and do:
+    each input read once and each output written once (lse in f32), and 2
+    per multiply-add of each product over the (query, key) pairs causal
+    masking leaves (forward: q.k and p.v; backward: the q.k recompute,
+    dv, dp, dq and dk)."""
+    b, t, h, kv, d = (shape[x] for x in ("b", "t", "h", "kv", "d"))
+    s, dv = shape.get("s", t), shape.get("dv", d)
+    q_start = attn_args(shape)[0]
+    pos = q_start + np.arange(t)
+    pairs = b * h * float(np.clip(pos + 1, 0, s).sum())
+    q_el, k_el, o_el = b * t * h * d, b * s * kv * (d + dv), b * t * h * dv
+    lse = 4.0 * b * t * h
+    return {"fwd": ((q_el + k_el + o_el) * esize + lse,
+                    2 * pairs * (d + dv)),
+            "bwd": ((2 * q_el + 2 * k_el + 2 * o_el) * esize + lse,
+                    2 * pairs * (3 * d + 2 * dv))}
+
+
+def sdpa(q, k, v):
+    """``F.scaled_dot_product_attention`` on the LM's (B, T, H, d) layout:
+    the library call ``flash_attention`` is timed against (a yardstick the
+    port never calls)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def phase_attention_check(gen: torch.Generator) -> dict[str, float]:
+    """flash attention's kernel against its plain version on the card,
+    forward (out, lse) and backward (dq, dk, dv), float32 and bf16, at
+    ATTN_SHAPE, MLA_SHAPE and CP_SHAPE. Returns the float32 max abs
+    errors at ATTN_SHAPE."""
+    err = {}
+    for label, shape in (("qwen3-1.7b prefill", ATTN_SHAPE),
+                         ("deepseek-v3 MLA", MLA_SHAPE),
+                         ("context-parallel block", CP_SHAPE)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = attn_inputs(shape, dtype, gen)
+            args = attn_args(shape)
+            out, lse = flash_attention_fwd(q, k, v, *args)
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+            w_out, w_lse = ops.attn_fwd_ref(q, k, v, *args)
+            w_grads = ops.attn_bwd_ref(q, k, v, w_out, w_lse, dout, *args)
+            tag = (f"flash_attention {str(dtype)[6:]} {label} (B, T, S, H, "
+                   f"KV, dqk, dv) = ({q.shape[0]}, {q.shape[1]}, "
+                   f"{k.shape[1]}, {q.shape[2]}, {k.shape[2]}, "
+                   f"{q.shape[3]}, {v.shape[3]}), q_start {args[0]}")
+            if dtype == torch.float32:
+                e_f = max(compare(f"{tag}: out", out, w_out, ATTN_F32_OUT_TOL),
+                          compare(f"{tag}: lse", lse, w_lse,
+                                  ATTN_F32_OUT_TOL))
+                e_b = max(compare(f"{tag}: {n}", g, w, ATTN_F32_GRAD_TOL)
+                          for n, g, w in zip(("dq", "dk", "dv"), grads,
+                                             w_grads, strict=True))
+                if shape is ATTN_SHAPE:
+                    err["flash_attention_fwd"] = e_f
+                    err["flash_attention_bwd"] = e_b
+            else:
+                check_tensors(f"{tag}: out", [out], [w_out], LM_ATTN_REL_L2)
+                check_tensors(f"{tag}: dq, dk, dv", list(grads),
+                              list(w_grads), LM_ATTN_REL_L2)
+            del q, k, v, dout, out, lse, grads, w_out, w_lse, w_grads
+            gc.collect()
+            torch.cuda.empty_cache()
+    return err
+
+
+def attn_times(shape: dict, dtype: torch.dtype, gen: torch.Generator,
+               card: str) -> dict:
+    """The kernel's forward, backward alone and both at ``shape`` beside
+    the plain version's, SDPA's and the bounds (ms)."""
+    q, k, v, dout = attn_inputs(shape, dtype, gen)
+    args = attn_args(shape)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    work = attn_work(shape, q.element_size())
     out = {}
     with torch.no_grad():
-        out["flash fwd"] = call_ms(lambda: flash_attention(q, k, v))
-        out["sdpa fwd"] = call_ms(lambda: sdpa(q, k, v))
-    out["flash fwd+bwd"] = call_ms(lambda: fwd_bwd(flash_attention), reps=3)
-    out["sdpa fwd+bwd"] = call_ms(lambda: fwd_bwd(sdpa), reps=3)
-    fb, _ = bound_ms(0.0, fwd_flops, BF16_FLOPS)
-    fbb, _ = bound_ms(0.0, 3.5 * fwd_flops, BF16_FLOPS)
-    print(f"[lm] attention (B, T, H, KV, d) = ({s['b']}, {s['t']}, "
-          f"{s['h']}, {s['kv']}, {s['d']}), causal, bf16, on {card}: "
-          f"flash_attention forward {out['flash fwd']:.3f} ms, forward + "
-          f"backward {out['flash fwd+bwd']:.3f} ms; "
-          f"F.scaled_dot_product_attention {out['sdpa fwd']:.3f} / "
-          f"{out['sdpa fwd+bwd']:.3f} ms; bound {fb:.3f} / {fbb:.3f} ms "
-          f"({fwd_flops:.3e} / {3.5 * fwd_flops:.3e} FLOP at 989 TFLOP/s)")
-    return dict(ms=out, bound_ms=fb, bound_fwd_bwd_ms=fbb, err=err)
+        o, lse = flash_attention_fwd(q, k, v, *args)
+        w_o, w_lse = ops.attn_fwd_ref(q, k, v, *args)
+        reps = 3 if dtype == torch.bfloat16 else 1
+        out["ms"] = dict(
+            fwd=call_ms(lambda: flash_attention_fwd(q, k, v, *args), reps=5),
+            bwd=call_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout,
+                                                    *args), reps=reps),
+            both=call_ms(lambda: flash_attention_bwd(
+                q, k, v, *flash_attention_fwd(q, k, v, *args), dout, *args),
+                reps=reps))
+        out["plain_ms"] = dict(
+            fwd=call_ms(lambda: ops.attn_fwd_ref(q, k, v, *args), reps=2),
+            bwd=call_ms(lambda: ops.attn_bwd_ref(q, k, v, w_o, w_lse, dout,
+                                                 *args), reps=1),
+            both=call_ms(lambda: ops.attn_bwd_ref(
+                q, k, v, *ops.attn_fwd_ref(q, k, v, *args), dout, *args),
+                reps=1))
+        del o, lse, w_o, w_lse
+    try:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.no_grad():
+            lib_fwd = call_ms(lambda: sdpa(q, k, v), reps=5)
+        lib_out = sdpa(*leaves)
+        out["library_ms"] = dict(
+            fwd=lib_fwd,
+            bwd=call_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, dout, retain_graph=True), reps=3),
+            both=call_ms(lambda: torch.autograd.grad(
+                sdpa(*leaves), leaves, dout), reps=3))
+        del lib_out, leaves
+    except RuntimeError as e:     # a yardstick only: none takes this shape
+        out["library_ms"] = dict(fwd=None, bwd=None, both=None)
+        print(f"[lm] F.scaled_dot_product_attention does not take "
+              f"{str(dtype)[6:]} {shape}: {str(e).splitlines()[0]}")
+    bounds = {p: bound_ms(*work[p], peak) for p in ("fwd", "bwd")}
+    out["bound_ms"] = dict(fwd=bounds["fwd"][0], bwd=bounds["bwd"][0],
+                           both=bounds["fwd"][0] + bounds["bwd"][0])
+    out["bound_by"] = bounds["fwd"][1]
+    out["flops"] = dict(fwd=work["fwd"][1], bwd=work["bwd"][1])
+
+    def fmt(x):
+        return "n/a" if x is None else f"{x:.3f}"
+
+    print(f"[lm] flash attention {str(dtype)[6:]} (B, T, S, H, KV, dqk, dv) "
+          f"= ({q.shape[0]}, {q.shape[1]}, {k.shape[1]}, {q.shape[2]}, "
+          f"{k.shape[2]}, {q.shape[3]}, {v.shape[3]}), causal, on {card}: "
+          + "; ".join(
+              f"{p} kernel {out['ms'][p]:.3f} ms, plain "
+              f"{out['plain_ms'][p]:.3f}, SDPA {fmt(out['library_ms'][p])}, "
+              f"bound {out['bound_ms'][p]:.3f}"
+              for p in ("fwd", "bwd", "both"))
+          + f" (by {out['bound_by']}: {work['fwd'][1]:.3e} / "
+          f"{work['bwd'][1]:.3e} FLOP at {peak / 1e12:.0f} TFLOP/s)")
+    return out
+
+
+def lm_attention_yardstick(card: str) -> dict:
+    """flash attention on the card (not counted: the main path's launches
+    are read before): its times at ATTN_SHAPE in bf16 and float32 and at
+    MLA_SHAPE in bf16, each beside the plain version, SDPA and the bound;
+    and the kernel's bf16 forward and gradients against SDPA's at
+    ATTN_SHAPE."""
+    from repro_torch.models.attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, dout = attn_inputs(ATTN_SHAPE, torch.bfloat16, gen)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(fn):
+        out = fn(*leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, dout)]
+
+    err = check_tensors("flash_attention forward, dq, dk, dv vs SDPA's, bf16",
+                        fwd_bwd(flash_attention), fwd_bwd(sdpa),
+                        LM_ATTN_REL_L2)
+    del q, k, v, dout, leaves
+    out = {"bf16": attn_times(ATTN_SHAPE, torch.bfloat16, gen, card),
+           "f32": attn_times(ATTN_SHAPE, torch.float32, gen, card),
+           "mla": attn_times(MLA_SHAPE, torch.bfloat16, gen, card),
+           "sdpa_err": err}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_record(att: dict, err: dict[str, float],
+                     launches: dict[str, int]) -> dict:
+    """The kernel's record for the ``kernels`` line: the forward at
+    ATTN_SHAPE in bf16 (the LM's dtype), its backward as the entry, each
+    with its float32 and MLA times."""
+    src = dict(route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/models/attention.py:120",
+               replaces_what="_flash_attention and its custom_vjp, plain "
+                             "jnp (no pl.pallas_call): the one LM function "
+                             "the port ran as a plain chunk loop",
+               library_note="F.scaled_dot_product_attention (is_causal, "
+                            "enable_gqa): a yardstick the port never calls")
+
+    def part(p: str) -> dict:
+        b = att["bf16"]
+        return dict(ms=b["ms"][p], plain_ms=b["plain_ms"][p],
+                    bound_ms=b["bound_ms"][p], bound_by=b["bound_by"],
+                    library_ms=b["library_ms"][p],
+                    f32={k: att["f32"][k][p] for k in
+                         ("ms", "plain_ms", "library_ms", "bound_ms")},
+                    mla={k: att["mla"][k][p] for k in
+                         ("ms", "plain_ms", "library_ms", "bound_ms")})
+
+    rec = dict(name="flash_attention", entry="flash_attention_fwd", **src,
+               launches=launches["flash_attention_fwd"],
+               max_abs_err=err["flash_attention_fwd"], **part("fwd"),
+               shape=dict(ATTN_SHAPE), mla_shape=dict(MLA_SHAPE),
+               fwd_bwd=part("both"), sdpa_rel_l2=att["sdpa_err"])
+    rec["entries"] = [dict(name="flash_attention", entry="flash_attention_bwd",
+                           **src, launches=launches["flash_attention_bwd"],
+                           max_abs_err=err["flash_attention_bwd"],
+                           **part("bwd"))]
+    return rec
 
 
 def lm_layers(card: str) -> dict:
@@ -2690,11 +2907,12 @@ def lm_train_100m(card: str) -> dict:
 
 
 def phase_lm(card: str) -> dict:
-    """The LM family on the card (no TPU kernel lies on its path, so it
-    launches none of the port's kernels): the five archs in bf16 at full
-    width (qwen3-1.7b at full depth), each decode held against its full
-    forward; deepseek's train_loss with MTP; the narrow variants card
-    against CPU; the attention yardstick; lm-100m training and its CLI."""
+    """The LM family on the card, its attention through the flash
+    attention kernel (forward and backward) and no DLRM kernel: the five
+    archs in bf16 at full width (qwen3-1.7b at full depth), each decode
+    held against its full forward; deepseek's train_loss with MTP; the
+    narrow variants card against CPU; lm-100m training and its CLI; then,
+    not counted, the attention yardstick and the other layers alone."""
     reset_counts()
     print(f"[lm] device memory held by earlier phases on {card}: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -2714,14 +2932,17 @@ def phase_lm(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["card_vs_cpu"] = lm_card_vs_cpu(card)
-    out["attention"] = lm_attention_yardstick(card)
-    out["layers"] = lm_layers(card)
     torch.cuda.synchronize()
     launches = read_counts()
-    print(f"[lm] launches of the port's kernels over the phase: {launches}")
-    if any(launches.values()):
-        raise AssertionError("the LM path launched a DLRM kernel")
+    # qwen3-1.7b's serve alone: three timed prefills, prefill_and_decode's
+    # and the full forward, each through every layer; lm-100m's in-process
+    # steps at LM_TRAIN_BATCH, three backward launches a layer a step
+    check_lm_launches("lm", launches,
+                      fwd=5 * configs.LM_ARCHS["qwen3-1.7b"].n_layers,
+                      bwd=3 * 4 * configs.LM_100M.n_layers)
     out["launches"] = launches
+    out["attention"] = lm_attention_yardstick(card)
+    out["layers"] = lm_layers(card)
     return out
 
 
@@ -2945,8 +3166,8 @@ def phase_lm_mesh(card: str) -> dict:
     and cut depth, each against the same plan without a mesh: qwen3-moe
     (sharded EP prefill, 2D EP decode), deepseek-v3 (2D EP prefill in
     chunks of 2048 tokens, 2D EP decode) and qwen2-0.5b (context-parallel
-    prefill and a train step with seq_shard); no launch of either
-    kernel."""
+    prefill and a train step with seq_shard); attention through the flash
+    attention kernel, no DLRM kernel."""
     import torch.distributed as dist
     reset_counts()
     t0 = time.perf_counter()
@@ -2970,10 +3191,13 @@ def phase_lm_mesh(card: str) -> dict:
         shutil.rmtree(pg_dir, ignore_errors=True)
     torch.cuda.synchronize()
     launches = read_counts()
-    print(f"[lm_mesh] launches of the port's kernels over the phase: "
-          f"{launches}; the phase took {time.perf_counter() - t0:.1f} s")
-    if any(launches.values()):
-        raise AssertionError("the LM's mesh path launched a DLRM kernel")
+    print(f"[lm_mesh] the phase took {time.perf_counter() - t0:.1f} s")
+    # each arch's mesh prefill through its layers, and qwen2's train step
+    # forward and backward
+    layers = [cut["n_layers"] for _, cut, _ in LM_MESH_RUNS]
+    n_train = LM_MESH_TRAIN[1]["n_layers"]
+    check_lm_launches("lm_mesh", launches,
+                      fwd=sum(layers) + 2 * n_train, bwd=3 * n_train)
     out["launches"] = launches
     return out
 
@@ -3115,10 +3339,13 @@ def phase_lm_blocks(card: str, dry: dict) -> dict:
     finally:
         dist.destroy_process_group()
     launches = read_counts()
-    print(f"[lm_blocks] launches of the port's kernels over the phase: "
-          f"{launches}; the phase took {time.perf_counter() - t0:.1f} s")
-    if any(launches.values()):
-        raise AssertionError("the LM's rank blocks launched a DLRM kernel")
+    print(f"[lm_blocks] the phase took {time.perf_counter() - t0:.1f} s")
+    # qwen3-1.7b's prefill_32k and train_4k calls (the first and the timed
+    # ones) through every layer; decode attends without the kernel
+    n = configs.LM_ARCHS["qwen3-1.7b"].n_layers
+    calls = {c: 1 + LM_BLOCK_REPS[c] for c in ("prefill_32k", "train_4k")}
+    check_lm_launches("lm_blocks", launches, fwd=n * sum(calls.values()),
+                      bwd=3 * n * calls["train_4k"])
     out["launches"] = launches
     return out
 
@@ -3364,7 +3591,7 @@ def phase_recsys_mesh(card: str, dry: dict) -> dict:
     world size 1 against the same plan without a mesh (the masked lookup,
     the sharded logsumexp and the score gather run at one rank, where they
     do the mesh-free arithmetic, so the values are held), then rank 0's
-    blocks of the 16 x 16 mesh under the fake group; no launch of either
+    blocks of the 16 x 16 mesh under the fake group; no launch of any
     kernel."""
     import torch.distributed as dist
     reset_counts()
@@ -3406,43 +3633,67 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # each phase's seconds (its name marks its end)
+    marks: list[tuple[str, float]] = [("start", t_start)]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     phase_build()
     err = phase_check(gen)
+    mark("build and check")
     res, launches = phase_serve()
+    mark("serve")
     retrieval = phase_retrieval(res)
+    mark("retrieval")
     records = phase_time(res, launches, err)
+    mark("time")
     phase_profile(res)
+    mark("profile")
     check_report(res)
     bf16 = phase_bf16(res, card)
+    mark("bf16")
     served = {k: v.clone() for k, v in res.inputs[0].items()}
     del res
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train()
+    mark("train")
     phase_resume()
     phase_cli()
+    mark("resume and cli")
     gc.collect()
     torch.cuda.empty_cache()
     sharded = phase_sharded(served, card)
+    mark("sharded")
     gc.collect()
     torch.cuda.empty_cache()
     recsys = phase_recsys(card)
+    mark("recsys")
     gc.collect()
     torch.cuda.empty_cache()
     registry = phase_registry(card)
+    mark("registry")
     gc.collect()
     torch.cuda.empty_cache()
     lm_out = phase_lm(card)
+    mark("lm")
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh = phase_lm_mesh(card)
+    mark("lm_mesh")
     gc.collect()
     torch.cuda.empty_cache()
     dryrun = phase_dryrun()
+    mark("dryrun")
     recsys_mesh = phase_recsys_mesh(card, dryrun)
+    mark("recsys_mesh")
     gc.collect()
     torch.cuda.empty_cache()
     lm_blocks = phase_lm_blocks(card, dryrun)
+    mark("lm_blocks")
+    records.append(attention_record(lm_out["attention"], err,
+                                    lm_out["launches"]))
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
@@ -3459,7 +3710,8 @@ def main() -> int:
             if name in bf16["kernels"]:
                 e["bf16"] = bf16["kernels"][name]
             # the registry archs' serve inputs: new shapes of the kernel
-            if e is r:
+            if e is r and all(name in a["kernels"]
+                              for a in registry["archs"].values()):
                 e["registry"] = {
                     arch: a["kernels"][name]
                     for arch, a in registry["archs"].items()}
@@ -3509,10 +3761,13 @@ def main() -> int:
     tr = lm_out["train"]
     print(f"[lm] lm-100m on {card}: batch {tr['batch']}, seq 256: "
           f"{tr['step_ms']:.1f} ms per warm step, peak {tr['peak_gb']:.2f} GB")
-    print(f"[lm] attention on {card}: "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in att["ms"].items())
-          + f"; bound {att['bound_ms']:.3f} / {att['bound_fwd_bwd_ms']:.3f}"
-          f" ms")
+    for dt in ("bf16", "f32", "mla"):
+        a = att[dt]
+        print(f"[lm] flash attention {dt} on {card}: "
+              + "; ".join(f"{p} {a['ms'][p]:.3f} ms (plain "
+                          f"{a['plain_ms'][p]:.3f}, bound "
+                          f"{a['bound_ms'][p]:.3f})"
+                          for p in ("fwd", "bwd", "both")))
     for name, r in lm_mesh["archs"].items():
         print(f"[lm_mesh] {name} on {card}: mesh / mesh-free "
               + ", ".join(f"{k} {v:.2f} ms" for k, v in r["ms"].items())
@@ -3547,6 +3802,9 @@ def main() -> int:
     print(f"[dryrun] {dryrun['counts']['ok']} ok / "
           f"{dryrun['counts']['skip']} skip / {dryrun['counts']['error']} "
           f"fail")
+    print("[time] phases: " + ", ".join(
+        f"{name} {t - t_prev:.1f} s"
+        for (_, t_prev), (name, t) in zip(marks, marks[1:])))
     print(f"[time] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -25,9 +25,12 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("recflash_sls", "dot_interaction")
+SOURCES = ("recflash_sls", "dot_interaction", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags: flash attention's 32 template instances optimise in
+# parallel, one thread a CPU (alone it builds in about 70 s otherwise)
+EXTRA_FLAGS = {"flash_attention": ("--split-compile", "0")}
 # the ``dtype`` argument of every C launcher
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,9 +46,13 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -62,7 +69,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
             continue
         compiler = compiler or nvcc()
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, lib)

@@ -1,5 +1,7 @@
 """Public kernel ops with the reference's signatures (``repro.kernels.ops``),
-and the grouped and fused entries the port's forward takes.
+the grouped and fused entries the port's forward takes, and flash
+attention's forward and backward (``models.attention`` differentiates
+through them).
 
 On a CUDA tensor each op launches its hand-written kernel; on a CPU tensor
 it runs the kernel's plain version. There is no fallback between the two.
@@ -19,6 +21,7 @@ from repro_torch.kernels.dot_interaction import DotInteractionFused
 from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
 from repro_torch.kernels.dot_interaction import (
     dot_interaction_fused as _fused_kernel)
+from repro_torch.kernels import flash_attention as _attn
 from repro_torch.kernels.recflash_sls import RecFlashSLSGrouped
 from repro_torch.kernels.recflash_sls import recflash_sls as _sls_kernel
 from repro_torch.kernels.recflash_sls import (
@@ -70,6 +73,12 @@ def dot_interaction_fused(bottom_out, bags):
     return _fused_kernel(bottom_out, bags)
 
 
+# flash attention's forward, (out, lse), and its FlashAttention-2 backward,
+# (dq, dk, dv): ``models.attention.FlashAttention`` differentiates through
+# them
+flash_attention_fwd = _attn.flash_attention_fwd
+flash_attention_bwd = _attn.flash_attention_bwd
+
 upper_triangle = _ref.upper_triangle
 
 # plain versions re-exported for chip_smoke.py and tests
@@ -77,3 +86,5 @@ sls_ref = _ref.recflash_sls_ref
 sls_grouped_ref = _ref.recflash_sls_grouped_ref
 dot_ref = _ref.dot_interaction_ref
 fused_ref = _ref.dot_interaction_fused_ref
+attn_fwd_ref = _ref.flash_attention_fwd_ref
+attn_bwd_ref = _ref.flash_attention_bwd_ref

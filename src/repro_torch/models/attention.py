@@ -1,15 +1,18 @@
 """Attention: chunked online-softmax (flash-style) attention and the decode
 path, on torch tensors. Port of ``repro.models.attention``.
 
-``flash_attention`` is the reference's algorithm in plain PyTorch: a loop
-over query chunks and, inside it, over KV chunks carries the running (max,
-denom, acc) triple, so the largest score block is ``(B, H, q_chunk,
-kv_chunk)`` instead of ``(B, H, T, S)``. Its gradient is the
-FlashAttention-2 backward (Dao, arXiv:2307.08691) as one
-``torch.autograd.Function``: the forward saves only ``(q, k, v, out,
-lse)`` and the backward recomputes each probability block from the
-log-sum-exp, as the reference's ``custom_vjp`` does. Autograd through the
-chunk loops would save every score block instead (O(T*S) memory).
+``flash_attention`` is the reference's algorithm: online softmax over KV
+chunks carries the running (max, denom, acc) triple, so no ``(B, H, T,
+S)`` score block is ever held. Its gradient is the FlashAttention-2
+backward (Dao, arXiv:2307.08691) as one ``torch.autograd.Function``: the
+forward saves only ``(q, k, v, out, lse)`` and the backward recomputes each
+probability block from the log-sum-exp, as the reference's ``custom_vjp``
+does. Autograd through the chunk loops would save every score block
+instead (O(T*S) memory). The Function calls ``kernels.ops``: on the card
+the forward and the backward are the hand-written CUDA kernel
+(``kernels/csrc/flash_attention.cu``), on the CPU (and on meta tensors)
+its plain version (``kernels.ref.flash_attention_fwd_ref`` / ``_bwd_ref``),
+the reference's chunk loops written eagerly.
 
 Kept from the reference: ``NEG_INF = -1e30`` (not ``-inf``), the
 probabilities rounded to ``q``'s dtype before the PV product, ``l_safe =
@@ -26,7 +29,14 @@ rounds each head's block to ``q``'s dtype first (equal in float32). And a
 KV chunk that lies wholly past a causal query chunk's last position is
 skipped when every query row of the chunk sees key 0: the reference's
 iteration over such a chunk adds exact zeros (``exp(-1e30 - m) = 0`` with
-``m`` finite), so the result is the same.
+``m`` finite), so the result is the same. The kernel tiles by its own
+sizes (64 rows and 32 or 64 keys), keeps scores in float32 and adds each
+product in float32 across tiles; ``q_chunk``/``kv_chunk`` choose only the
+plain version's rounding points.
+
+``attention_dense`` (the fallback for shapes that do not chunk) and decode
+attention stay plain PyTorch on both devices, as the reference computes
+them with einsums outside any kernel.
 
 ``decode_attention`` is the single-token serve path over a KV cache.
 Under a mesh the cache's sequence is split over ``model`` (the reference's
@@ -42,8 +52,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.mesh import pmax, reduce_from
-
-NEG_INF = -1e30
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -72,147 +82,15 @@ def attention_dense(q, k, v, causal: bool = True, scale: float | None = None):
     return torch.einsum("bhts,bshd->bthd", w, v)
 
 
-def _grouped(x: torch.Tensor, kv: int) -> torch.Tensor:
-    """(B, T, H, d) -> (B, KV, T * n_rep, d), row ``t * n_rep + r`` the
-    query head ``kv_head * n_rep + r`` at position ``t``: a chunk of
-    positions is a contiguous range of rows, and one KV head's queries are
-    one matrix."""
-    b, t, h, d = x.shape
-    return x.reshape(b, t, kv, h // kv, d).permute(0, 2, 1, 3, 4) \
-        .reshape(b, kv, t * (h // kv), d)
-
-
-def _ungrouped(x: torch.Tensor, t: int, h: int) -> torch.Tensor:
-    """Inverse of ``_grouped``: (B, KV, T * n_rep, d) -> (B, T, H, d)."""
-    b, kv, _, d = x.shape
-    return x.reshape(b, kv, t, h // kv, d).permute(0, 2, 1, 3, 4) \
-        .reshape(b, t, h, d)
-
-
-class _Blocks:
-    """The chunking of one call: (GQA-grouped) row ranges and positions of
-    each query chunk, KV ranges, and which blocks are masked or skipped."""
-
-    def __init__(self, t, s, n_rep, q_start, causal, q_chunk, kv_chunk,
-                 device):
-        self.nq, self.nk = t // q_chunk, s // kv_chunk
-        self.qc, self.kc, self.n_rep = q_chunk, kv_chunk, n_rep
-        self.q_start, self.causal = q_start, causal
-        # global position of every grouped row, and of every key
-        self.row_pos = (q_start + torch.arange(t, device=device)
-                        ).repeat_interleave(n_rep)
-        self.k_pos = torch.arange(s, device=device)
-
-    def rows(self, i: int) -> slice:
-        r = self.qc * self.n_rep
-        return slice(i * r, (i + 1) * r)
-
-    def keys(self, j: int) -> slice:
-        return slice(j * self.kc, (j + 1) * self.kc)
-
-    def kv_chunks(self, i: int):
-        """``(j, mask or None)`` for the KV chunks query chunk ``i`` reads:
-        ``None`` where no key of the block is masked."""
-        q_lo = self.q_start + i * self.qc
-        q_hi = q_lo + self.qc - 1
-        for j in range(self.nk):
-            k_lo, k_hi = j * self.kc, (j + 1) * self.kc - 1
-            if not self.causal or k_hi <= q_lo:
-                yield j, None
-            elif k_lo > q_hi and q_lo >= 0:
-                return        # this chunk and every later one add zeros
-            else:
-                yield j, (self.k_pos[self.keys(j)][None, :]
-                          <= self.row_pos[self.rows(i)][:, None])
-
-
-def _scores(qb, kb, mask, scale):
-    logits = (qb @ kb.transpose(-1, -2) * scale).float()
-    if mask is not None:
-        logits = torch.where(mask, logits, NEG_INF)
-    return logits
-
-
-def _flash_fwd(q, k, v, q_start, causal, q_chunk, kv_chunk, scale):
-    """Returns (out (B,T,H,dv), lse (B,KV,T*n_rep) float32)."""
-    b, t, h, _ = q.shape
-    s, kv, dv = k.shape[1], k.shape[2], v.shape[3]
-    blk = _Blocks(t, s, h // kv, q_start, causal, q_chunk, kv_chunk,
-                  q.device)
-    qg, kg, vg = _grouped(q, kv), _grouped(k, kv), _grouped(v, kv)
-    out = torch.empty((b, kv, t * (h // kv), dv), dtype=q.dtype,
-                      device=q.device)
-    lse = torch.empty((b, kv, t * (h // kv)), dtype=torch.float32,
-                      device=q.device)
-    for i in range(blk.nq):
-        rows = blk.rows(i)
-        qb = qg[:, :, rows]
-        n = qb.shape[2]
-        m = torch.full((b, kv, n), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        lsum = torch.zeros((b, kv, n), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, kv, n, dv), dtype=torch.float32,
-                          device=q.device)
-        for j, mask in blk.kv_chunks(i):
-            keys = blk.keys(j)
-            logits = _scores(qb, kg[:, :, keys], mask, scale)
-            m_new = torch.maximum(m, logits.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(logits - m_new[..., None])
-            lsum = lsum * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + (p.to(q.dtype)
-                                            @ vg[:, :, keys]).float()
-            m = m_new
-        l_safe = lsum.clamp_min(1e-37)
-        out[:, :, rows] = (acc / l_safe[..., None]).to(q.dtype)
-        lse[:, :, rows] = m + torch.log(l_safe)
-    return _ungrouped(out, t, h), lse
-
-
-def _flash_bwd(q, k, v, out, lse, dout, q_start, causal, q_chunk, kv_chunk,
-               scale):
-    """FlashAttention-2 backward: recompute p-blocks from the saved lse."""
-    b, t, h, dh = q.shape
-    s, kv, dv = k.shape[1], k.shape[2], v.shape[3]
-    blk = _Blocks(t, s, h // kv, q_start, causal, q_chunk, kv_chunk,
-                  q.device)
-    qg, kg, vg = _grouped(q, kv), _grouped(k, kv), _grouped(v, kv)
-    dog = _grouped(dout.to(q.dtype), kv)
-    # delta_i = rowsum(dO_i * O_i) in float32
-    delta = (dog.float() * _grouped(out, kv).float()).sum(-1)
-    dq = torch.empty((b, kv, t * (h // kv), dh), dtype=torch.float32,
-                     device=q.device)
-    dk = torch.zeros((b, kv, s, dh), dtype=torch.float32, device=q.device)
-    dvg = torch.zeros((b, kv, s, dv), dtype=torch.float32, device=q.device)
-    for i in range(blk.nq):
-        rows = blk.rows(i)
-        qb, dob = qg[:, :, rows], dog[:, :, rows]
-        lse_b, d_b = lse[:, :, rows, None], delta[:, :, rows, None]
-        dq_b = torch.zeros_like(dq[:, :, rows])
-        for j, mask in blk.kv_chunks(i):
-            keys = blk.keys(j)
-            kb, vb = kg[:, :, keys], vg[:, :, keys]
-            p = torch.exp(_scores(qb, kb, mask, scale) - lse_b)
-            dvg[:, :, keys] += (p.to(q.dtype).transpose(-1, -2)
-                                @ dob).float()
-            dp = (dob @ vb.transpose(-1, -2)).float()
-            ds = (p * (dp - d_b) * scale).to(q.dtype)
-            dq_b += (ds @ kb).float()
-            dk[:, :, keys] += (ds.transpose(-1, -2) @ qb).float()
-        dq[:, :, rows] = dq_b
-    return (_ungrouped(dq, t, h).to(q.dtype),
-            _ungrouped(dk, s, kv).to(k.dtype),
-            _ungrouped(dvg, s, kv).to(v.dtype))
-
-
 class FlashAttention(torch.autograd.Function):
-    """``_flash_fwd`` with the FlashAttention-2 backward; saves ``(q, k, v,
-    out, lse)`` and nothing per chunk."""
+    """``ops.flash_attention_fwd`` with its FlashAttention-2 backward
+    (``ops.flash_attention_bwd``); saves ``(q, k, v, out, lse)`` and
+    nothing per chunk."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_start, causal, q_chunk, kv_chunk, scale):
-        out, lse = _flash_fwd(q, k, v, q_start, causal, q_chunk, kv_chunk,
-                              scale)
+        out, lse = ops.flash_attention_fwd(q, k, v, q_start, causal, q_chunk,
+                                           kv_chunk, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (q_start, causal, q_chunk, kv_chunk, scale)
         return out
@@ -220,7 +98,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -675,6 +675,141 @@ def test_flash_attention_on_card_vs_cpu(gen):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-4)
 
 
+# -- the flash attention kernel against its plain version -------------------
+# (b, t, s, h, kv, dqk, dv, causal, q_start): tests/test_torch_attention.py's
+# CASES (GQA, t < s, bidirectional, MLA 48/32, and a 96-row shape that is
+# one chunk), then n_rep 7 and 8, an explicit q_start, and q_start < 0,
+# where the first rows see no key (each is the mean of v, and its backward
+# p is 1 on every key)
+ATTN_CASES = [
+    (2, 1024, 1024, 4, 2, 64, 64, True, None),
+    (1, 512, 2048, 8, 8, 32, 32, True, None),
+    (2, 1024, 1024, 6, 3, 64, 64, False, None),
+    (2, 512, 512, 4, 4, 48, 32, True, None),
+    (2, 96, 96, 4, 2, 16, 16, True, None),
+    (1, 512, 512, 7, 1, 64, 64, True, None),
+    (2, 256, 256, 8, 1, 128, 128, True, None),
+    (1, 512, 1024, 4, 2, 32, 32, True, 256),
+    (2, 256, 256, 4, 2, 64, 64, True, -100),
+]
+# float32: the reference's own tolerances (tests/test_torch_attention.py),
+# output and lse atol 2e-5, gradients 5e-4, rtol 0; bf16: relative L2 2e-2
+# (LM_ATTN_REL_L2 in chip_smoke.py; the plain version rounds q.k, dO.v and
+# each chunk pair's products to bf16, the kernel keeps them in f32)
+ATTN_REL_L2 = 2e-2
+
+
+def _attn_inputs(gen, b, t, s, h, kv, dqk, dv, dtype, split_v=False):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k = rnd(b, t, h, dqk), rnd(b, s, kv, dqk)
+    if split_v:       # MLA: v is a split view of the up-projected kv
+        v = rnd(b, s, kv, 128 + dv).split([128, dv], -1)[1]
+    else:
+        v = rnd(b, s, kv, dv)
+    return q, k, v, rnd(b, t, h, dv)
+
+
+def _attn_close(got, want, dtype, atol):
+    for a, w in zip(got, want, strict=True):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, rtol=0, atol=atol)
+        else:
+            assert bool(torch.isfinite(a.float()).all())
+            assert float(torch.linalg.vector_norm((a - w).float())) <= \
+                ATTN_REL_L2 * float(torch.linalg.vector_norm(w.float()))
+
+
+def _attn_vs_plain(gen, b, t, s, h, kv, dqk, dv, causal, q_start, dtype,
+                   split_v=False):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    q, k, v, dout = _attn_inputs(gen, b, t, s, h, kv, dqk, dv, dtype,
+                                 split_v)
+    qc, kc = min(256, t), min(256, s)
+    args = (s - t if q_start is None else q_start, causal, qc, kc,
+            dqk ** -0.5)
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out, lse = flash_attention_fwd(q, k, v, *args)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == \
+        (f0 + 1, b0 + 3)
+    want_out, want_lse = ops.attn_fwd_ref(q, k, v, *args)
+    want_grads = ops.attn_bwd_ref(q, k, v, want_out, want_lse, dout, *args)
+    _attn_close([out], [want_out], dtype, 2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0,
+                               atol=2e-5 if dtype == torch.float32 else 2e-2)
+    _attn_close(grads, want_grads, dtype, 5e-4)
+
+
+class TestFlashAttentionKernel:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", ATTN_CASES)
+    def test_vs_plain(self, gen, case, dtype):
+        _attn_vs_plain(gen, *case, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_mla_192_128_split_v(self, gen, dtype):
+        """deepseek-v3's head dims, n_rep 1, v a split view whose row
+        stride is not its dim."""
+        _attn_vs_plain(gen, 1, 256, 256, 4, 4, 192, 128, True, None, dtype,
+                       split_v=True)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_backward_is_deterministic(self, gen, dtype):
+        """No atomics: two calls give the same bits, forward and backward
+        (the lm_mesh phase's (1, 1) plans rely on it)."""
+        from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+        q, k, v, dout = _attn_inputs(gen, 2, 512, 512, 8, 2, 64, 64, dtype)
+        args = (0, True, 256, 256, 0.125)
+        out, lse = flash_attention_fwd(q, k, v, *args)
+        again = flash_attention_fwd(q, k, v, *args)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        first = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+        second = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(first, second, strict=True))
+
+    def test_rows_that_see_no_key_are_the_mean_of_v(self, gen):
+        from repro_torch.kernels.flash_attention import flash_attention_fwd
+        q, k, v, _ = _attn_inputs(gen, 1, 128, 128, 2, 2, 32, 32,
+                                  torch.float32)
+        out, _ = flash_attention_fwd(q, k, v, -64, True, 128, 128, 32 ** -0.5)
+        torch.testing.assert_close(
+            out[:, :64], v.mean(1, keepdim=True).expand(1, 64, 2, 32),
+            rtol=0, atol=2e-5)
+
+    def test_function_counts_and_raises(self, gen):
+        from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+        from repro_torch.models.attention import flash_attention
+        q, k, v, dout = _attn_inputs(gen, 1, 256, 256, 4, 2, 64, 64,
+                                     torch.bfloat16)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        out = flash_attention(q, k, v, q_chunk=128, kv_chunk=128)
+        torch.autograd.grad(out, (q, k, v), dout)
+        assert (flash_attention_fwd.launches,
+                flash_attention_bwd.launches) == (f0 + 1, b0 + 3)
+        for dqk, dv in ((256, 64), (64, 256), (12, 12)):
+            a, b_, c, _ = _attn_inputs(gen, 1, 64, 64, 2, 2, dqk, dv,
+                                       torch.float32)
+            with pytest.raises(ValueError):
+                flash_attention_fwd(a, b_, c, 0, True, 64, 64, 0.1)
+        with pytest.raises(ValueError):           # last dim not contiguous
+            flash_attention_fwd(q.detach().transpose(2, 3).contiguous()
+                                .transpose(2, 3), k.detach(), v.detach(),
+                                0, True, 128, 128, 0.1)
+        with pytest.raises(TypeError):            # mixed dtypes
+            flash_attention_fwd(q.detach().float(), k.detach(), v.detach(),
+                                0, True, 128, 128, 0.1)
+        assert (flash_attention_fwd.launches,
+                flash_attention_bwd.launches) == (f0 + 1, b0 + 3)
+
+
 # -- the LM's mesh branches at world size 1 over NCCL -----------------------
 
 
