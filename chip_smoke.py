@@ -5,7 +5,9 @@ Phases, each of which fails the run when it fails:
 
 1. build: ``nvcc`` compiles the three kernels from
    ``src/repro_torch/kernels/csrc`` for sm_90a, one process per source, all
-   at once (flash attention's 32 template instances take about 25 s);
+   at once (flash attention's 25 template instances take about 15-23 s,
+   the others a few), and the wgmma instructions in the flash library's
+   SASS counted;
 2. check: every kernel entry against its plain PyTorch version on the card,
    in f32 and bf16: the per-table SLS (all-hot and all-cold bags) and the
    grouped SLS over 26 tables x 1M rows with rank_of (and without) at the
@@ -13,7 +15,8 @@ Phases, each of which fails the run when it fails:
    (64, 27, 64) and the reference's odd shape (8, 3, 18); flash
    attention, forward (out, lse) and backward (dq, dk, dv), at
    qwen3-1.7b's prefill shape, deepseek's MLA shape (qk 192, v 128, v a
-   split view) and a context-parallel block (explicit q_start);
+   split view) and a context-parallel block (explicit q_start): float32
+   on its CUDA-core route, bf16 on its wgmma route;
 3. serve: ``repro_torch.launch.serve`` at dlrm-rm2's published width: a
    ``Deployment`` of 26 tables x 1M rows replays the stream through every
    NAND policy lane on the host (simulated flashsim time, printed as the
@@ -82,10 +85,11 @@ Phases, each of which fails the run when it fails:
    lm-100m training in process and through ``python -m
    repro_torch.launch.train --model lm``, run and resumed; the phase's
    attention runs through the flash attention kernel (forward launches
-   at least its layers times its calls, backward launches in training)
-   and no DLRM kernel; after the counted path, the kernel's times beside
-   the plain version, ``F.scaled_dot_product_attention`` (a yardstick the
-   path never calls) and the bound, bf16 and float32;
+   at least its layers times its calls, backward launches in training;
+   the bf16 ones on the wgmma route) and no DLRM kernel; after the
+   counted path, the kernel's times beside the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick the path never calls)
+   and the bound, bf16 and float32;
 12. lm_mesh: the LM under a (1, 1) ("data", "model") mesh over NCCL at
    world size 1, through the registry's plans (``configs.get_arch``) at
    full width with the depth cut as in phase 11, each against the same
@@ -152,6 +156,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -178,7 +183,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
     dot_interaction, dot_interaction_fused, dot_interaction_fused_backward)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_bwd, flash_attention_fwd)
+    bucket as fa_bucket, flash_attention_bwd, flash_attention_fwd,
+    route as fa_route)
 from repro_torch.kernels.recflash_sls import (  # noqa: E402
     describe, recflash_sls, recflash_sls_grouped,
     recflash_sls_grouped_backward)
@@ -244,6 +250,10 @@ COUNTERS = {"recflash_sls_grouped": recflash_sls_grouped,
             "flash_attention_bwd": flash_attention_bwd}
 DLRM_KERNELS = ("recflash_sls_grouped", "dot_interaction_fused",
                 "recflash_sls", "dot_interaction")
+# flash attention's launches by route (``kernels.flash_attention.route``:
+# wgmma for bf16, cuda_cores for float32), reset and read with the counters
+ROUTED = {"flash_attention_fwd": flash_attention_fwd,
+          "flash_attention_bwd": flash_attention_bwd}
 # logits of the kernel-routed forward against the plain-routed one: the bag
 # and Gram sums differ in order only (bags are ~1e-2, logits ~1)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -384,15 +394,32 @@ def sls_bytes(p: dict, inputs: list[dict]) -> tuple[float, float]:
     return grouped / len(inputs), per_table / (len(inputs) * n_t)
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel source at once (flash attention's is the slowest,
+    so the phase's seconds are its own); print the kernels' registers and
+    spills. Returns the seconds and the flash attention library's
+    warpgroup products (HGMMA, what wgmma.mma_async compiles to) counted
+    in its SASS by shape; none fails the run."""
     t0 = time.perf_counter()
     logs = _build.build_all()
+    build_s = time.perf_counter() - t0
     print(f"[build] nvcc -gencode arch=compute_90a,code=sm_90a: "
-          f"{', '.join(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+          f"{', '.join(_build.SOURCES)} in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma: dict[str, int] = {}
+    for op in re.findall(r"HGMMA\.(\w+)", sass):
+        hgmma[op] = hgmma.get(op, 0) + 1
+    print(f"[build] flash_attention's SASS: HGMMA by shape {hgmma}")
+    if not hgmma:
+        raise AssertionError("the flash attention library has no wgmma")
+    return dict(build_s=build_s, sass_hgmma=hgmma)
 
 
 def phase_check(gen: torch.Generator) -> dict[str, float]:
@@ -484,8 +511,7 @@ def check_grouped(gen: torch.Generator) -> float:
 
 def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
     """The main path, with the kernels' launch counts over exactly it."""
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    reset_counts()
     res = serve_mod.serve(device="cuda", **SERVE)
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     cfg, lane = res.cfg, res.traces["recflash"].batches
@@ -546,10 +572,17 @@ def check_report(res: serve_mod.ServeResult) -> None:
 def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    for fn in ROUTED.values():
+        fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def read_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def read_routes() -> dict[str, dict[str, int]]:
+    """Each flash attention wrapper's launches by route."""
+    return {name: dict(fn.routes) for name, fn in ROUTED.items()}
 
 
 def counts(**launches: int) -> dict[str, int]:
@@ -557,20 +590,29 @@ def counts(**launches: int) -> dict[str, int]:
     return {**dict.fromkeys(COUNTERS, 0), **launches}
 
 
-def check_lm_launches(phase: str, launches: dict[str, int], fwd: int,
-                      bwd: int = 0) -> None:
-    """An LM path: no DLRM kernel, and at least ``fwd`` flash attention
+def check_lm_launches(phase: str, launches: dict[str, int],
+                      routes: dict[str, dict[str, int]], fwd: int,
+                      bwd: int = 0, wgmma_fwd: int = 0,
+                      wgmma_bwd: int = 0) -> None:
+    """An LM path: no DLRM kernel; at least ``fwd`` flash attention
     forward launches (its layers times its calls) and ``bwd`` backward
-    launches (three a backward call)."""
+    launches (two a bf16 backward call, three a float32 one); and at least
+    ``wgmma_fwd`` and ``wgmma_bwd`` of them on the wgmma route (its bf16
+    calls)."""
     print(f"[{phase}] launches of the port's kernels over the phase: "
-          f"{launches}; at least {fwd} attention forward and {bwd} backward "
-          f"launches expected")
+          f"{launches}; by route {routes}; at least {fwd} attention forward "
+          f"and {bwd} backward launches expected, {wgmma_fwd} and "
+          f"{wgmma_bwd} of them on the wgmma route")
     if any(launches[k] for k in DLRM_KERNELS):
         raise AssertionError(f"the {phase} path launched a DLRM kernel")
     if launches["flash_attention_fwd"] < fwd or \
             launches["flash_attention_bwd"] < bwd:
         raise AssertionError(f"the {phase} path did not run attention "
                              f"through the kernel: {launches}")
+    if routes["flash_attention_fwd"]["wgmma"] < wgmma_fwd or \
+            routes["flash_attention_bwd"]["wgmma"] < wgmma_bwd:
+        raise AssertionError(f"the {phase} path's bf16 attention did not "
+                             f"run on the wgmma route: {routes}")
 
 
 def phase_retrieval(res: serve_mod.ServeResult) -> dict:
@@ -2594,8 +2636,9 @@ def phase_attention_check(gen: torch.Generator) -> dict[str, float]:
             grads = flash_attention_bwd(q, k, v, out, lse, dout, *args)
             w_out, w_lse = ops.attn_fwd_ref(q, k, v, *args)
             w_grads = ops.attn_bwd_ref(q, k, v, w_out, w_lse, dout, *args)
-            tag = (f"flash_attention {str(dtype)[6:]} {label} (B, T, S, H, "
-                   f"KV, dqk, dv) = ({q.shape[0]}, {q.shape[1]}, "
+            way = fa_route(dtype, fa_bucket(q.shape[3], v.shape[3]))[0]
+            tag = (f"flash_attention {str(dtype)[6:]} ({way}) {label} (B, T, "
+                   f"S, H, KV, dqk, dv) = ({q.shape[0]}, {q.shape[1]}, "
                    f"{k.shape[1]}, {q.shape[2]}, {k.shape[2]}, "
                    f"{q.shape[3]}, {v.shape[3]}), q_start {args[0]}")
             if dtype == torch.float32:
@@ -2713,10 +2756,14 @@ def lm_attention_yardstick(card: str) -> dict:
 
 
 def attention_record(att: dict, err: dict[str, float],
-                     launches: dict[str, int]) -> dict:
+                     launches: dict[str, int],
+                     routes: dict[str, dict[str, dict[str, int]]],
+                     build: dict) -> dict:
     """The kernel's record for the ``kernels`` line: the forward at
     ATTN_SHAPE in bf16 (the LM's dtype), its backward as the entry, each
-    with its float32 and MLA times."""
+    with its float32 and MLA times, its launches by route on each LM path
+    (``routes``: path -> wrapper -> route -> launches), and the build
+    phase's seconds and its SASS's HGMMA count by shape."""
     src = dict(route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/models/attention.py:120",
@@ -2736,14 +2783,19 @@ def attention_record(att: dict, err: dict[str, float],
                     mla={k: att["mla"][k][p] for k in
                          ("ms", "plain_ms", "library_ms", "bound_ms")})
 
+    def by_route(entry: str) -> dict:
+        return {path: r[entry] for path, r in routes.items()}
+
     rec = dict(name="flash_attention", entry="flash_attention_fwd", **src,
                launches=launches["flash_attention_fwd"],
                max_abs_err=err["flash_attention_fwd"], **part("fwd"),
                shape=dict(ATTN_SHAPE), mla_shape=dict(MLA_SHAPE),
-               fwd_bwd=part("both"), sdpa_rel_l2=att["sdpa_err"])
+               fwd_bwd=part("both"), sdpa_rel_l2=att["sdpa_err"],
+               launches_by_route=by_route("flash_attention_fwd"), **build)
     rec["entries"] = [dict(name="flash_attention", entry="flash_attention_bwd",
                            **src, launches=launches["flash_attention_bwd"],
                            max_abs_err=err["flash_attention_bwd"],
+                           launches_by_route=by_route("flash_attention_bwd"),
                            **part("bwd"))]
     return rec
 
@@ -2933,14 +2985,17 @@ def phase_lm(card: str) -> dict:
         torch.cuda.empty_cache()
     out["card_vs_cpu"] = lm_card_vs_cpu(card)
     torch.cuda.synchronize()
-    launches = read_counts()
-    # qwen3-1.7b's serve alone: three timed prefills, prefill_and_decode's
-    # and the full forward, each through every layer; lm-100m's in-process
-    # steps at LM_TRAIN_BATCH, three backward launches a layer a step
-    check_lm_launches("lm", launches,
-                      fwd=5 * configs.LM_ARCHS["qwen3-1.7b"].n_layers,
-                      bwd=3 * 4 * configs.LM_100M.n_layers)
-    out["launches"] = launches
+    launches, routes = read_counts(), read_routes()
+    # qwen3-1.7b's serve alone, bf16 (the wgmma route): three timed
+    # prefills, prefill_and_decode's and the full forward, each through
+    # every layer; lm-100m's in-process steps at LM_TRAIN_BATCH in float32,
+    # three backward launches a layer a step; deepseek's bf16 train_loss,
+    # two a layer
+    n_qwen = configs.LM_ARCHS["qwen3-1.7b"].n_layers
+    check_lm_launches("lm", launches, routes, fwd=5 * n_qwen,
+                      bwd=3 * 4 * configs.LM_100M.n_layers,
+                      wgmma_fwd=5 * n_qwen, wgmma_bwd=2)
+    out["launches"], out["routes"] = launches, routes
     out["attention"] = lm_attention_yardstick(card)
     out["layers"] = lm_layers(card)
     return out
@@ -3190,15 +3245,17 @@ def phase_lm_mesh(card: str) -> dict:
         dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches, routes = read_counts(), read_routes()
     print(f"[lm_mesh] the phase took {time.perf_counter() - t0:.1f} s")
     # each arch's mesh prefill through its layers, and qwen2's train step
-    # forward and backward
+    # forward and backward (two launches a layer), all bf16
     layers = [cut["n_layers"] for _, cut, _ in LM_MESH_RUNS]
     n_train = LM_MESH_TRAIN[1]["n_layers"]
-    check_lm_launches("lm_mesh", launches,
-                      fwd=sum(layers) + 2 * n_train, bwd=3 * n_train)
-    out["launches"] = launches
+    n_fwd = sum(layers) + 2 * n_train
+    check_lm_launches("lm_mesh", launches, routes, fwd=n_fwd,
+                      bwd=2 * n_train, wgmma_fwd=n_fwd,
+                      wgmma_bwd=2 * n_train)
+    out["launches"], out["routes"] = launches, routes
     return out
 
 
@@ -3338,15 +3395,16 @@ def phase_lm_blocks(card: str, dry: dict) -> dict:
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    launches = read_counts()
+    launches, routes = read_counts(), read_routes()
     print(f"[lm_blocks] the phase took {time.perf_counter() - t0:.1f} s")
     # qwen3-1.7b's prefill_32k and train_4k calls (the first and the timed
-    # ones) through every layer; decode attends without the kernel
+    # ones) through every layer, bf16; decode attends without the kernel
     n = configs.LM_ARCHS["qwen3-1.7b"].n_layers
     calls = {c: 1 + LM_BLOCK_REPS[c] for c in ("prefill_32k", "train_4k")}
-    check_lm_launches("lm_blocks", launches, fwd=n * sum(calls.values()),
-                      bwd=3 * n * calls["train_4k"])
-    out["launches"] = launches
+    n_fwd, n_bwd = n * sum(calls.values()), 2 * n * calls["train_4k"]
+    check_lm_launches("lm_blocks", launches, routes, fwd=n_fwd, bwd=n_bwd,
+                      wgmma_fwd=n_fwd, wgmma_bwd=n_bwd)
+    out["launches"], out["routes"] = launches, routes
     return out
 
 
@@ -3639,7 +3697,7 @@ def main() -> int:
     def mark(name: str) -> None:
         marks.append((name, time.perf_counter()))
 
-    phase_build()
+    build = phase_build()
     err = phase_check(gen)
     mark("build and check")
     res, launches = phase_serve()
@@ -3692,8 +3750,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_blocks = phase_lm_blocks(card, dryrun)
     mark("lm_blocks")
-    records.append(attention_record(lm_out["attention"], err,
-                                    lm_out["launches"]))
+    records.append(attention_record(
+        lm_out["attention"], err, lm_out["launches"],
+        {"lm": lm_out["routes"], "lm_mesh": lm_mesh["routes"],
+         "lm_blocks": lm_blocks["routes"]}, build))
     by_path = {"serve": launches, "train": train["launches"],
                "retrieval": retrieval["launches"],
                "sharded": sharded["launches"], "bf16": bf16["launches"],
@@ -3794,7 +3854,7 @@ def main() -> int:
               f"run), peak {r['peak_gb']:.2f} GB (dry-run "
               f"{r['dryrun_peak_gb']:.2f} GB)")
     for key, r in lm_blocks.items():
-        if key != "launches":
+        if key not in ("launches", "routes"):
             print(f"[lm_blocks] {key}, rank 0 of 16 x 16 on {card}: "
                   f"{r['ms']:.1f} ms per call (compute only, collectives "
                   f"not run), peak {r['peak_gb']:.2f} GB (dry-run "

@@ -33,35 +33,70 @@
 // the forward does 5.5e11 FLOP, 0.555 ms at 989 TFLOP/s, against 0.40 GB
 // of q, k, v and out, 0.12 ms at 3.35 TB/s; the backward 2.5x the forward.
 //
-// Design (FlashAttention-2 on mma.sync; wgmma, TMA and warp specialisation
-// are later work):
-// - bf16 products run on the tensor cores, mma.sync.m16n8k16 with f32
-//   accumulation, operands read from shared memory by ldmatrix (.trans for
-//   a [k][n] operand). A score fragment turns into the next product's A
-//   fragment in registers (the C layout of two n8 tiles is the A layout of
-//   one k16 step), so p and ds never touch shared memory.
-// - f32 multiplies on the CUDA cores, in f32, with the same fragment layout
-//   (each thread owns the elements an mma C fragment would give it): TF32
-//   would keep 10 mantissa bits and break the f32 tolerances.
-// - Four warps a block, 16 rows a warp. The forward and the dq kernel take
-//   64 grouped query rows a block and walk the key tiles; the dk/dv kernel
-//   takes 64 keys a block and walks the query tiles (every head of the
-//   group) that see them. Each warp's accumulators stay in registers; no
-//   kernel communicates between warps or blocks, and no atomics: the
-//   gradients are deterministic.
-// - K/V (or Q/dO) tiles are double-buffered in shared memory by 16-byte
-//   cp.async copies, one tile in flight while the other is used. Rows are
-//   padded by 16 bytes, so ldmatrix's eight row addresses fall in eight
-//   bank groups. Tensors are read in their (B, L, heads, d) layout through
-//   their strides (no permuted copies; MLA's v is a split view).
-// - Head dims are template buckets: qk {32, 48, 64, 128, 192} with v
-//   {32, 32, 64, 128, 128}. A smaller dim is zero-padded in shared memory
-//   (zero columns add nothing); the wrapper picks the bucket.
-// - Causal query tiles run longest first (blockIdx.x reversed).
+// Two routes; the wrapper picks one from the dtype alone
+// (kernels/flash_attention.py, route) and passes its code; a launch on a
+// route that has no instance for the bucket fails, never falls back.
+//
+// 1. wgmma (bf16): the Hopper design below, instances 64/64, 128/128 and
+//    192/128 (every LM config's head dims); the test-only buckets 32/32
+//    and 48/32 run on 64/64, zero-padded by TMA.
+// 2. cuda_cores (float32, every bucket): the first FlashAttention-2
+//    kernels, unchanged (the kernels outside namespace wg), on the CUDA
+//    cores in f32 with mma.sync's fragment layout: TF32 would keep 10
+//    mantissa bits and break the f32 tolerances. Four warps a block over
+//    64 grouped rows, 16 rows a warp; K/V double-buffered by 16-byte
+//    cp.async copies into rows padded by 16 bytes; three backward
+//    launches (delta, dk/dv, dq).
+//    Bound by the CUDA cores' 67 TFLOP/s.
+//
+// The wgmma route (FlashAttention-3's shape, Shah et al., arXiv:2407.08608):
+// - Every block is three warpgroups: two consumers of 64 rows each and one
+//   producer. setmaxnreg gives the consumers 240 registers a thread and
+//   leaves the producer 24: 64,512 in all, the block's 168 x 384 at launch
+//   (setmaxnreg moves registers inside the block; asking for more waits
+//   forever). One producer thread keeps a ring of stages in flight by TMA
+//   (cp.async.bulk.tensor, 4-D maps over the tensors' own (d, heads, L, B)
+//   strides, 64-column boxes under the 128-byte swizzle; a row of 128 or
+//   192 columns is two or three boxes), with full and empty mbarriers a
+//   stage. TMA zero-fills past T and S; keys past S still read -inf in
+//   the scores (only the last tile checks).
+// - Products are wgmma.m64nNk16 with f32 accumulators. Q stays resident in
+//   shared memory as the A operand of S = Q K^T; p and ds go from the
+//   accumulators to bf16 A fragments in registers; a transposed operand
+//   (V in P V, K in dS K, Q and dO in the dk/dv sums) is read MN-major
+//   through its descriptor, never copied.
+// - A block takes 128 positions of one query head (forward, dq): a GQA
+//   group's 6 or 7 heads do not tile a 128-row box, so the grouped order
+//   lives only in lse's and delta's index. Causal blocks run longest first;
+//   the causal mask and the ragged-S test run only on the tiles that cross
+//   the diagonal or the end, and the key-tile skip rule is key_tiles'.
+// - Forward, 128 x 128 tiles, three K/V stages (225 KB of shared memory
+//   at d 128; two at 192/128, 209 KB): each consumer issues S_{j+1} and
+//   P_j V_j back to back, frees K_{j+1}'s stage as soon as S_{j+1} is in,
+//   and runs its softmax while P_j V_j is still in the tensor core; O is
+//   rescaled, and P_{j+1}'s bf16 fragments made, only after P_j V_j lands.
+//   A register a wgmma in flight reads must not be written meanwhile, or
+//   ptxas serializes the products (its C7513 note) and the overlap is
+//   gone. The two consumers are not made to take turns (FA-3's ping-pong
+//   ran 18% slower here on an NVIDIA H100 80GB HBM3 at 700 W).
+// - Backward, two launches: the dq kernel (128 rows, 64 keys a step) first
+//   sums delta = rowsum(dO O) for its rows and writes it out, then walks
+//   the key tiles (S, dP, dQ += dS K); the dk/dv kernel (128 keys a block,
+//   64 a consumer) walks every query head of the group and every query
+//   tile that sees its keys, 64 rows a step (32 at 192/128, where dk's 96
+//   and dv's 64 accumulator registers a thread leave no room for 64), with
+//   lse and delta staged by the producer warp. No atomics: every dq, dk
+//   and dv element is one block's f32 sum in a fixed order.
+// - What bounds it: the tensor cores' 989 TFLOP/s, and before them the
+//   softmax's exp (16 a clock an SM, half the products' time at d 128)
+//   and its other ALU work, which this design overlaps with the other
+//   warpgroup and, in the forward only, with the P V product; the
+//   backward's steps are serial inside a warpgroup.
 
 #include <cmath>
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap, cuTensorMapEncodeTiled (-lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -107,7 +142,6 @@ __device__ __forceinline__ const T* grouped_row(const View& v, int b, int kvh,
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // two neighbouring elements of a row, rounded to the element type
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -117,10 +151,13 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// exp: exact-rounded expf for f32 (its tolerance is the reference's own),
-// the fast intrinsic for bf16
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// exp: exact-rounded expf for f32 (its tolerance is the reference's own)
 __device__ __forceinline__ float fexp(float x, float) { return expf(x); }
-__device__ __forceinline__ float fexp(float x, bf16) { return __expf(x); }
 
 // ---------------------------------------------------------------- copies --
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
@@ -169,91 +206,14 @@ __device__ __forceinline__ void zero_smem(unsigned char* s, int bytes) {
     *reinterpret_cast<uint4*>(s + i) = make_uint4(0, 0, 0, 0);
 }
 
-// ------------------------------------------------------ warp products, bf16
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// acc (16 x N) += A (16 x D, rows at a, stride lda) . B^T, B (N x D, rows at
-// b, stride ldb): the score-like product, both operands row-major over D.
-// acc[n] is the C fragment of columns [8n, 8n + 8): elements (g, 2tq),
-// (g, 2tq + 1), (g + 8, 2tq), (g + 8, 2tq + 1), g = lane / 4, tq = lane % 4.
-template <int D, int N>
-__device__ __forceinline__ void mma_nt(float (&acc)[N / 8][4], const bf16* a,
-                                       int lda, const bf16* b, int ldb) {
-  const int lane = threadIdx.x % 32, mi = lane / 8;
-#pragma unroll
-  for (int k = 0; k < D / 16; ++k) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane % 16) * lda + k * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (n * 16 + (mi / 2) * 8 + lane % 8) * ldb + k * 16 +
-                      (mi % 2) * 8);
-      mma16816(acc[2 * n], af, bf[0], bf[1]);
-      mma16816(acc[2 * n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x N) += round(P) (16 x K, C fragments in registers) . B (K x N,
-// row-major at b, stride ldb): P rounded to bf16 (to nearest even) as the
-// reference rounds p and ds to q's dtype.
-template <int K, int N>
-__device__ __forceinline__ void mma_pn(float (&acc)[N / 8][4],
-                                       const float (&p)[K / 8][4],
-                                       const bf16* b, int ldb) {
-  const int lane = threadIdx.x % 32, mi = lane / 8;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t af[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldb + n * 16 +
-                        (mi / 2) * 8);
-      mma16816(acc[2 * n], af, bf[0], bf[1]);
-      mma16816(acc[2 * n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
 // ------------------------------------------------------- warp products, f32
-// The same two products on the CUDA cores, each thread computing the
-// elements of its C fragments with f32 FMAs.
+// A warp's 16 rows of the two products on the CUDA cores, each thread
+// computing the elements an mma.sync C fragment would give it with f32
+// FMAs: acc[n] holds columns [8n, 8n + 8), elements (g, 2tq), (g, 2tq + 1),
+// (g + 8, 2tq), (g + 8, 2tq + 1), g = lane / 4, tq = lane % 4.
+// mma_nt: acc (16 x N) += A (16 x D, rows at a, stride lda) . B^T, B (N x D,
+// rows at b, stride ldb); mma_pn: acc (16 x N) += P (16 x K, C fragments in
+// registers) . B (K x N, row-major at b, stride ldb).
 template <int D, int N>
 __device__ __forceinline__ void mma_nt(float (&acc)[N / 8][4], const float* a,
                                        int lda, const float* b, int ldb) {
@@ -738,6 +698,940 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   }
 }
 
+// ============================================= the wgmma route (bf16) ==
+namespace wg {
+
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kThreads = 384;    // and one producer warpgroup
+
+// The TMA maps of one launch and its arguments, a __grid_constant__
+// parameter (a map must live in parameter, constant or global memory).
+struct Params {
+  CUtensorMap q, k, v, dout;
+  Args a;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary at or after p: a swizzle atom's alignment
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------------------ mbarriers --
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic
+__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed; a wait of
+// more than about ten seconds (a copy that never lands) traps, so a fault
+// ends the launch with an error instead of holding the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > 20000000000ll) __trap();
+  }
+}
+
+// a 64-column box of a 4-D map at (column, head, position, batch)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------- wgmma --
+// A shared memory operand in the 128-byte swizzle TMA writes: rows of 128
+// bytes (64 bf16), 8-row groups 1024 bytes apart (SBO); `lbo` is the byte
+// distance between 64-column boxes, read for an MN-major operand wider
+// than one box (a K-major one passes 16, unused).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// k-step k (16 columns) of a K-major tile whose boxes are `box` bytes apart
+__device__ __forceinline__ const unsigned char* kstep(const unsigned char* t,
+                                                      int k, int box) {
+  return t + (k / 4) * box + (k % 4) * 32;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers a wgmma in flight reads or writes: this orders every later
+// use after the wait that precedes it, and keeps an A fragment alive
+// until then.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// "+f" operands d[i] .. d[i + n - 1]
+#define FA_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA_D16(i) FA_D8(i), FA_D8(i + 8)
+#define FA_D32(i) FA_D16(i), FA_D16(i + 16)
+#define FA_D64(i) FA_D32(i), FA_D32(i + 32)
+#define FA_D96(i) FA_D64(i), FA_D32(i + 64)
+
+// d (64 x N, f32) = (acc ? d : 0) + A . B^T, both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc);
+
+// d (64 x N) += A . B: A bf16 fragments in registers (16 columns of k), B
+// (16 x N) MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_D16(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_D64(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_D64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : FA_D96(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FA_D8
+#undef FA_D16
+#undef FA_D32
+#undef FA_D64
+#undef FA_D96
+
+// The bf16 A fragments of a 64 x N accumulator (N / 16 steps of k), each
+// value rounded to nearest even: the C layout of two n8 tiles is the A
+// layout of one k16 step.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&c)[N / 2]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    a[k][0] = pack_bf16(c[8 * k], c[8 * k + 1]);
+    a[k][1] = pack_bf16(c[8 * k + 2], c[8 * k + 3]);
+    a[k][2] = pack_bf16(c[8 * k + 4], c[8 * k + 5]);
+    a[k][3] = pack_bf16(c[8 * k + 6], c[8 * k + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// Shared memory of one (kernel, qk dim, v dim): byte offsets of its tiles,
+// each a whole number of 1024-byte swizzle atoms, then the mbarriers.
+template <int D, int DV>
+struct Fwd {
+  static constexpr int BM = 128, BN = 128;        // rows, keys
+  static constexpr int NS = D + DV > 256 ? 2 : 3;  // stages: 225 KB at d 128
+  static constexpr int QB = D / 64, VB = DV / 64;  // 64-column boxes
+  static constexpr int q_bytes = BM * D * 2, k_bytes = BN * D * 2,
+                       v_bytes = BN * DV * 2;
+  static constexpr int k_off = q_bytes, v_off = k_off + NS * k_bytes,
+                       bar_off = v_off + NS * v_bytes;
+  static constexpr int smem = bar_off + 128 + 1024;
+};
+
+template <int D, int DV>
+struct Dq {
+  static constexpr int BM = 128, BN = 64, NS = 2;
+  static constexpr int QB = D / 64, VB = DV / 64;
+  static constexpr int q_bytes = BM * D * 2, o_bytes = BM * DV * 2,
+                       k_bytes = BN * D * 2, v_bytes = BN * DV * 2;
+  static constexpr int o_off = q_bytes, k_off = o_off + o_bytes,
+                       v_off = k_off + NS * k_bytes,
+                       bar_off = v_off + NS * v_bytes;
+  static constexpr int smem = bar_off + 64 + 1024;
+};
+
+template <int D, int DV>
+struct Dkdv {
+  static constexpr int BK = 128;                     // keys a block
+  static constexpr int BM = D + DV > 256 ? 32 : 64;  // query rows a step
+  static constexpr int NS = 2;
+  static constexpr int QB = D / 64, VB = DV / 64;
+  static constexpr int k_bytes = BK * D * 2, v_bytes = BK * DV * 2,
+                       q_bytes = BM * D * 2, o_bytes = BM * DV * 2;
+  static constexpr int v_off = k_bytes, q_off = v_off + v_bytes,
+                       o_off = q_off + NS * q_bytes,
+                       l_off = o_off + NS * o_bytes,  // lse, delta: f32
+                       bar_off = l_off + NS * BM * 8;
+  static constexpr int smem = bar_off + 64 + 1024;
+};
+
+// ---------------------------------------------------------------- forward --
+// One block a (batch, query head, 128 positions); consumer warpgroup w
+// takes positions [64 w, 64 w + 64) of them.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_kernel(const __grid_constant__ Params p) {
+  using C = Fwd<D, DV>;
+  constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
+  const Args& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + C::bar_off);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty_k = full_v + NS;  // K is free once S is in, V after P V
+  uint64_t* empty_v = empty_k + NS;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.n_rep;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest first
+  const int end = key_tiles(a, t0 * a.n_rep, min(t0 + BM, a.T) * a.n_rep, BN);
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full_k + s, 1);
+      bar_init(full_v + s, 1);
+      bar_init(empty_k + s, 8);  // a consumer warp each
+      bar_init(empty_v + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer
+    regs_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      bar_expect(bar_q, C::q_bytes);
+      for (int i = 0; i < C::QB; ++i)
+        tma_load(sm + i * BM * 128, &p.q, bar_q, i * 64, h, t0, b);
+      for (int j = 0; j < end; ++j) {
+        const int s = j % NS;
+        if (j >= NS) bar_wait(empty_k + s, (j / NS - 1) & 1);
+        bar_expect(full_k + s, C::k_bytes);
+        for (int i = 0; i < C::QB; ++i)
+          tma_load(sm + C::k_off + s * C::k_bytes + i * BN * 128, &p.k,
+                   full_k + s, i * 64, kvh, j * BN, b);
+        if (j >= NS) bar_wait(empty_v + s, (j / NS - 1) & 1);
+        bar_expect(full_v + s, C::v_bytes);
+        for (int i = 0; i < C::VB; ++i)
+          tma_load(sm + C::v_off + s * C::v_bytes + i * BN * 128, &p.v,
+                   full_v + s, i * 64, kvh, j * BN, b);
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int row0 = t0 + 64 * w;             // this warpgroup's first row
+  const int tr = row0 + 16 * warp + g;      // this thread's rows tr, tr + 8
+  const int pos[2] = {a.q_start + tr, a.q_start + tr + 8};
+  const unsigned char* sQ = sm + w * 64 * 128;
+  float o[DV / 2], sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  zero(o);
+
+  auto qk = [&](int j) {  // S = Q K_j^T
+    const unsigned char* kt = sm + C::k_off + (j % NS) * C::k_bytes;
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_ss<BN>(sc, desc(kstep(sQ, k, BM * 128), 16),
+                   desc(kstep(kt, k, BN * 128), 16), k > 0);
+    wg_commit();
+  };
+  auto pv = [&](int j) {  // O += P_j V_j
+    const unsigned char* vt = sm + C::v_off + (j % NS) * C::v_bytes;
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k)
+      wgmma_rs<DV>(o, pa[k], desc(vt + k * 16 * 128, BN * 128));
+    wg_commit();
+  };
+  // the online softmax of tile j's scores: new m and l, P (f32) in place
+  // of S, and the factor O's sum must take
+  auto softmax = [&](int j) {
+    float mx[2] = {m[0], m[1]};
+    const bool edge = (a.causal && j * BN + BN - 1 > a.q_start + row0) ||
+                      (j + 1) * BN > a.S;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BN + i * 8 + 2 * tq + (e & 1);
+          float x = sc[4 * i + e] * a.scale;
+          if (key >= a.S) x = -INFINITY;  // past the end: not a key at all
+          else if (a.causal && key > pos[e >> 1]) x = kNegInf;
+          sc[4 * i + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        sc[i] *= a.scale;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = __expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      sc[i] = __expf(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+
+  bar_wait(bar_q, 0);
+  bar_wait(full_k, 0);
+  qk(0);
+  wg_wait<0>();
+  keep(sc);
+  if (lane == 0) bar_arrive(empty_k);
+  softmax(0);
+  to_a<BN>(pa, sc);
+  for (int j = 1; j < end; ++j) {
+    bar_wait(full_k + j % NS, (j / NS) & 1);
+    bar_wait(full_v + (j - 1) % NS, ((j - 1) / NS) & 1);
+    keep(o);
+    keep(pa);
+    qk(j);
+    pv(j - 1);
+    wg_wait<1>();  // S_j is in; P_{j-1} V_{j-1} may still run
+    keep(sc);
+    if (lane == 0) bar_arrive(empty_k + j % NS);
+    softmax(j);
+    wg_wait<0>();
+    keep(o);
+    keep(pa);
+    if (lane == 0) bar_arrive(empty_v + (j - 1) % NS);
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P's bf16 fragments only now: defined while P_{j-1} V_{j-1} still ran,
+    // they could take the registers it reads, and ptxas would serialize
+    // the products (no overlap of the softmax with P V)
+    to_a<BN>(pa, sc);
+  }
+  bar_wait(full_v + (end - 1) % NS, ((end - 1) / NS) & 1);
+  keep(o);
+  keep(pa);
+  pv(end - 1);
+  wg_wait<0>();
+  keep(o);
+  keep(pa);
+
+  const int R = a.T * a.n_rep;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = tr + 8 * r;
+    const float l_safe = fmaxf(quad_sum(l[r]), 1e-37f);
+    if (t >= a.T) continue;
+    bf16* orow = static_cast<bf16*>(a.o) +
+                 ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.dvd;
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      const int col = i * 8 + 2 * tq;
+      if (col < a.dvd)
+        store2(orow + col, o[4 * i + 2 * r] / l_safe,
+               o[4 * i + 2 * r + 1] / l_safe);
+    }
+    if (tq == 0)
+      a.lse[(static_cast<long long>(b) * a.KV + kvh) * R +
+            static_cast<long long>(t) * a.n_rep + h % a.n_rep] =
+          m[r] + logf(l_safe);
+  }
+}
+
+// --------------------------------------------------------------------- dq --
+// One block a (batch, query head, 128 positions): delta of its rows, then
+// the key tiles, 64 keys a step; dq in registers.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ Params p) {
+  using C = Dq<D, DV>;
+  constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
+  const Args& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + C::bar_off);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty = full_v + NS;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.n_rep;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest first
+  const int end = key_tiles(a, t0 * a.n_rep, min(t0 + BM, a.T) * a.n_rep, BN);
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full_k + s, 1);
+      bar_init(full_v + s, 1);
+      bar_init(empty + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    regs_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      bar_expect(bar_q, C::q_bytes + C::o_bytes);
+      for (int i = 0; i < C::QB; ++i)
+        tma_load(sm + i * BM * 128, &p.q, bar_q, i * 64, h, t0, b);
+      for (int i = 0; i < C::VB; ++i)
+        tma_load(sm + C::o_off + i * BM * 128, &p.dout, bar_q, i * 64, h, t0,
+                 b);
+      for (int j = 0; j < end; ++j) {
+        const int s = j % NS;
+        if (j >= NS) bar_wait(empty + s, (j / NS - 1) & 1);
+        bar_expect(full_k + s, C::k_bytes);
+        for (int i = 0; i < C::QB; ++i)
+          tma_load(sm + C::k_off + s * C::k_bytes + i * BN * 128, &p.k,
+                   full_k + s, i * 64, kvh, j * BN, b);
+        bar_expect(full_v + s, C::v_bytes);
+        for (int i = 0; i < C::VB; ++i)
+          tma_load(sm + C::v_off + s * C::v_bytes + i * BN * 128, &p.v,
+                   full_v + s, i * 64, kvh, j * BN, b);
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int row0 = t0 + 64 * w;
+  const int tr = row0 + 16 * warp + g;
+  const int pos[2] = {a.q_start + tr, a.q_start + tr + 8};
+  const int R = a.T * a.n_rep;
+  const long long lrow = (static_cast<long long>(b) * a.KV + kvh) * R;
+
+  // delta = rowsum(dO * O) of this warpgroup's 64 rows, two threads a row
+  // (row 16 warp + lane / 2), 16 bytes a load; written out for the dk/dv
+  // kernel, and read back by shuffle for the rows this thread holds
+  float delta[2], lse[2];
+  {
+    const int t = row0 + 16 * warp + lane / 2;
+    float sum = 0.f;
+    if (t < a.T) {
+      const bf16* orow = static_cast<const bf16*>(a.out) +
+                         ((static_cast<long long>(b) * a.T + t) * a.H + h) *
+                             a.dvd;
+      const bf16* drow = row_of<bf16>(a.dout, b, t, h);
+      for (int c = (lane % 2) * 8; c < a.dvd; c += 16) {
+        const uint4 x = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(drow + c);
+        const bf16* xo = reinterpret_cast<const bf16*>(&x);
+        const bf16* yd = reinterpret_cast<const bf16*>(&y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          sum += __bfloat162float(yd[e]) * __bfloat162float(xo[e]);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (lane % 2 == 0 && t < a.T)
+      a.delta[lrow + static_cast<long long>(t) * a.n_rep + h % a.n_rep] = sum;
+    delta[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    delta[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tt = tr + 8 * r;  // p = 0 off the end
+      lse[r] = tt < a.T ? a.lse[lrow + static_cast<long long>(tt) * a.n_rep +
+                                h % a.n_rep]
+                        : INFINITY;
+    }
+  }
+
+  const unsigned char* sQ = sm + w * 64 * 128;
+  const unsigned char* sO = sm + C::o_off + w * 64 * 128;
+  float dq[D / 2], sc[BN / 2], dp[BN / 2];
+  uint32_t da[BN / 16][4];
+  zero(dq);
+  bar_wait(bar_q, 0);
+  for (int j = 0; j < end; ++j) {
+    const int s = j % NS, par = (j / NS) & 1;
+    const unsigned char* kt = sm + C::k_off + s * C::k_bytes;
+    const unsigned char* vt = sm + C::v_off + s * C::v_bytes;
+    bar_wait(full_k + s, par);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)  // S = Q K^T
+      wgmma_ss<BN>(sc, desc(kstep(sQ, k, BM * 128), 16),
+                   desc(kstep(kt, k, BN * 128), 16), k > 0);
+    wg_commit();
+    bar_wait(full_v + s, par);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < DV / 16; ++k)  // dP = dO V^T
+      wgmma_ss<BN>(dp, desc(kstep(sO, k, BM * 128), 16),
+                   desc(kstep(vt, k, BN * 128), 16), k > 0);
+    wg_commit();
+    wg_wait<0>();
+    keep(sc);
+    keep(dp);
+    const bool edge = (a.causal && j * BN + BN - 1 > a.q_start + row0) ||
+                      (j + 1) * BN > a.S;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * i + e] * a.scale;
+        bool gone = false;
+        if (edge) {
+          const int key = j * BN + i * 8 + 2 * tq + (e & 1);
+          gone = key >= a.S;
+          if (a.causal && key > pos[e >> 1]) x = kNegInf;
+        }
+        const float pr = gone ? 0.f : __expf(x - lse[e >> 1]);
+        sc[4 * i + e] = pr * (dp[4 * i + e] - delta[e >> 1]) * a.scale;
+      }
+    to_a<BN>(da, sc);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k)  // dQ += dS K
+      wgmma_rs<D>(dq, da[k], desc(kt + k * 16 * 128, BN * 128));
+    wg_commit();
+    wg_wait<0>();
+    keep(dq);
+    keep(da);
+    if (lane == 0) bar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = tr + 8 * r;
+    if (t >= a.T) continue;
+    bf16* row = static_cast<bf16*>(a.dq) +
+                ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.dqk;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = i * 8 + 2 * tq;
+      if (col < a.dqk)
+        store2(row + col, dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dk/dv --
+// One block a (batch, kv head, 128 keys), consumer warpgroup w taking keys
+// [64 w, 64 w + 64); it walks every (query tile, query head of the group)
+// that sees its keys, BM rows a step, with dk and dv in registers.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const __grid_constant__ Params p) {
+  using C = Dkdv<D, DV>;
+  constexpr int BK = C::BK, BM = C::BM, NS = C::NS;
+  const Args& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  float* sL = reinterpret_cast<float*>(sm + C::l_off);  // lse: NS x BM
+  float* sD = sL + NS * BM;                             // delta: NS x BM
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + C::bar_off);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + NS;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;  // the first keys see the most rows
+  const int R = a.T * a.n_rep;
+  const long long lrow = (static_cast<long long>(b) * a.KV + kvh) * R;
+  // the query tiles that see these keys: positions t >= k0 - q_start when
+  // causal and every row sees key 0; a row that sees no key (q_start < 0)
+  // has p = 1 on every key, so then all of them
+  const int n_t = (a.T + BM - 1) / BM;
+  int start = 0;
+  if (a.causal && a.q_start >= 0 && k0 - a.q_start > 0)
+    start = min((k0 - a.q_start) / BM, n_t);
+  const int steps = (n_t - start) * a.n_rep;
+  if (threadIdx.x == 0) {
+    bar_init(bar_kv, 1);
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full + s, 32);  // the producer warp's lanes
+      bar_init(empty + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    regs_dec<24>();
+    if (threadIdx.x < kConsumers + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        bar_expect(bar_kv, C::k_bytes + C::v_bytes);
+        for (int i = 0; i < C::QB; ++i)
+          tma_load(sm + i * BK * 128, &p.k, bar_kv, i * 64, kvh, k0, b);
+        for (int i = 0; i < C::VB; ++i)
+          tma_load(sm + C::v_off + i * BK * 128, &p.v, bar_kv, i * 64, kvh,
+                   k0, b);
+      }
+      for (int u = 0; u < steps; ++u) {
+        const int s = u % NS, r = u % a.n_rep;
+        const int tq0 = (start + u / a.n_rep) * BM, hq = kvh * a.n_rep + r;
+        if (u >= NS) bar_wait(empty + s, (u / NS - 1) & 1);
+        for (int x = lane; x < BM; x += 32) {
+          const int t = tq0 + x;
+          const long long i = lrow + static_cast<long long>(t) * a.n_rep + r;
+          sL[s * BM + x] = t < a.T ? a.lse[i] : INFINITY;  // p = 0
+          sD[s * BM + x] = t < a.T ? a.delta[i] : 0.f;
+        }
+        if (lane == 0) {
+          bar_expect(full + s, C::q_bytes + C::o_bytes);
+          unsigned char* qt = sm + C::q_off + s * C::q_bytes;
+          unsigned char* ot = sm + C::o_off + s * C::o_bytes;
+          for (int i = 0; i < C::QB; ++i)
+            tma_load(qt + i * BM * 128, &p.q, full + s, i * 64, hq, tq0, b);
+          for (int i = 0; i < C::VB; ++i)
+            tma_load(ot + i * BM * 128, &p.dout, full + s, i * 64, hq, tq0,
+                     b);
+        } else {
+          bar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int key0 = k0 + 64 * w;            // this warpgroup's first key
+  const int kr = key0 + 16 * warp + g;     // this thread's keys kr, kr + 8
+  const unsigned char* sK = sm + w * 64 * 128;
+  const unsigned char* sV = sm + C::v_off + w * 64 * 128;
+  float dk[D / 2], dv[DV / 2], st[BM / 2], dpt[BM / 2];
+  uint32_t pa[BM / 16][4], da[BM / 16][4];
+  zero(dk);
+  zero(dv);
+  bar_wait(bar_kv, 0);
+  for (int u = 0; u < steps; ++u) {
+    const int s = u % NS;
+    const int tq0 = (start + u / a.n_rep) * BM;
+    const unsigned char* qt = sm + C::q_off + s * C::q_bytes;
+    const unsigned char* ot = sm + C::o_off + s * C::o_bytes;
+    const float* lb = sL + s * BM;
+    const float* db = sD + s * BM;
+    bar_wait(full + s, (u / NS) & 1);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)  // S^T = K Q^T
+      wgmma_ss<BM>(st, desc(kstep(sK, k, BK * 128), 16),
+                   desc(kstep(qt, k, BM * 128), 16), k > 0);
+#pragma unroll
+    for (int k = 0; k < DV / 16; ++k)  // dP^T = V dO^T
+      wgmma_ss<BM>(dpt, desc(kstep(sV, k, BK * 128), 16),
+                   desc(kstep(ot, k, BM * 128), 16), k > 0);
+    wg_commit();
+    wg_wait<0>();
+    keep(st);
+    keep(dpt);
+    // row t of the tile sees key kr iff kr <= q_start + t
+    const bool edge = a.causal && a.q_start + tq0 < key0 + 63;
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = i * 8 + 2 * tq + (e & 1);
+        float x = st[4 * i + e] * a.scale;
+        if (edge && kr + 8 * (e >> 1) > a.q_start + tq0 + c) x = kNegInf;
+        const float pr = __expf(x - lb[c]);
+        st[4 * i + e] = pr;
+        dpt[4 * i + e] = pr * (dpt[4 * i + e] - db[c]) * a.scale;  // dS^T
+      }
+    to_a<BM>(pa, st);
+    to_a<BM>(da, dpt);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)  // dV += P^T dO
+      wgmma_rs<DV>(dv, pa[k], desc(ot + k * 16 * 128, BM * 128));
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)  // dK += dS^T Q
+      wgmma_rs<D>(dk, da[k], desc(qt + k * 16 * 128, BM * 128));
+    wg_commit();
+    wg_wait<0>();
+    keep(dv);
+    keep(dk);
+    keep(pa);
+    keep(da);
+    if (lane == 0) bar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kr + 8 * r;
+    if (key >= a.S) continue;
+    const long long base = (static_cast<long long>(b) * a.S + key) * a.KV + kvh;
+    bf16* krow = static_cast<bf16*>(a.dk) + base * a.dqk;
+    bf16* vrow = static_cast<bf16*>(a.dv) + base * a.dvd;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = i * 8 + 2 * tq;
+      if (col < a.dqk)
+        store2(krow + col, dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      const int col = i * 8 + 2 * tq;
+      if (col < a.dvd)
+        store2(vrow + col, dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch --
+// A 4-D map over a (B, L, heads, d) bf16 tensor read through its element
+// strides, as (d, heads, L, B): boxes of 64 columns by `rows` positions of
+// one head, 128-byte swizzled, zeros past every edge. A dim of size 1 gets
+// a stride that is a multiple of 16 bytes (it is never stepped).
+bool make_map(CUtensorMap* map, const View& v, int d, int heads, int len,
+              int batch, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(batch)};
+  const long long el[3] = {v.sh, v.sl, v.sb};
+  cuuint64_t strides[3];
+  cuuint64_t span = dims[0] * 2;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] > 1 ? static_cast<cuuint64_t>(el[i]) * 2
+                                 : (span + 15) / 16 * 16;
+    span = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v.p),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename K>
+cudaError_t run(K kernel, const Params& p, dim3 grid, int smem,
+                cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int DV>
+cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
+  using C = Fwd<D, DV>;
+  Params p;
+  p.a = a;
+  if (!make_map(&p.q, a.q, a.dqk, a.H, a.T, a.B, C::BM) ||
+      !make_map(&p.k, a.k, a.dqk, a.KV, a.S, a.B, C::BN) ||
+      !make_map(&p.v, a.v, a.dvd, a.KV, a.S, a.B, C::BN))
+    return cudaErrorInvalidValue;
+  return run(fwd_kernel<D, DV>, p, dim3((a.T + C::BM - 1) / C::BM, a.H, a.B),
+             C::smem, st);
+}
+
+// two launches: dq (which writes delta), then dk/dv (which reads it)
+template <int D, int DV>
+cudaError_t launch_bwd(const Args& a, cudaStream_t st) {
+  using Q = Dq<D, DV>;
+  using K = Dkdv<D, DV>;
+  Params p;
+  p.a = a;
+  if (!make_map(&p.q, a.q, a.dqk, a.H, a.T, a.B, Q::BM) ||
+      !make_map(&p.dout, a.dout, a.dvd, a.H, a.T, a.B, Q::BM) ||
+      !make_map(&p.k, a.k, a.dqk, a.KV, a.S, a.B, Q::BN) ||
+      !make_map(&p.v, a.v, a.dvd, a.KV, a.S, a.B, Q::BN))
+    return cudaErrorInvalidValue;
+  cudaError_t e = run(dq_kernel<D, DV>, p,
+                      dim3((a.T + Q::BM - 1) / Q::BM, a.H, a.B), Q::smem, st);
+  if (e != cudaSuccess) return e;
+  if (!make_map(&p.q, a.q, a.dqk, a.H, a.T, a.B, K::BM) ||
+      !make_map(&p.dout, a.dout, a.dvd, a.H, a.T, a.B, K::BM) ||
+      !make_map(&p.k, a.k, a.dqk, a.KV, a.S, a.B, K::BK) ||
+      !make_map(&p.v, a.v, a.dvd, a.KV, a.S, a.B, K::BK))
+    return cudaErrorInvalidValue;
+  return run(dkdv_kernel<D, DV>, p,
+             dim3((a.S + K::BK - 1) / K::BK, a.KV, a.B), K::smem, st);
+}
+
+// the (qk, v) instances of this route; kernels/flash_attention.py's
+// WGMMA_BUCKETS names the same (a smaller bucket runs on 64/64, zero-
+// padded by TMA)
+#define FA_WGMMA_BUCKETS(X) X(64, 64) X(128, 128) X(192, 128)
+
+cudaError_t dispatch(const Args& a, int bd, int bdv, bool bwd,
+                     cudaStream_t st) {
+  // the grid is (tiles, heads, batch): a head's tiles run side by side and
+  // share its K and V in L2 (ordering every head's longest tile first
+  // instead reads the whole K and V from memory, 12% slower)
+  if (a.H > 65535) return cudaErrorInvalidValue;
+#define FA_CASE(d, dv)                                              \
+  if (bd == d && bdv == dv)                                         \
+    return bwd ? launch_bwd<d, dv>(a, st) : launch_fwd<d, dv>(a, st);
+  FA_WGMMA_BUCKETS(FA_CASE)
+#undef FA_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
 // ---------------------------------------------------------------- launch --
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -777,7 +1671,8 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the (qk, v) buckets; kernels/flash_attention.py's BUCKETS names the same
+// the (qk, v) buckets of the cuda_cores route (float32);
+// kernels/flash_attention.py's BUCKETS names the same
 #define FA_BUCKETS(X) X(32, 32) X(48, 32) X(64, 64) X(128, 128) X(192, 128)
 
 template <typename T>
@@ -791,9 +1686,13 @@ cudaError_t dispatch(const Args& a, int bd, int bdv, bool bwd,
   return cudaErrorInvalidValue;
 }
 
+// the wrapper's route codes (kernels/flash_attention.py, ROUTE_CODES)
+enum Route { kCudaCores = 0, kWgmma = 1 };
+
 // ints: B, T, S, H, KV, dqk, dv, q_start, causal, bucket qk, bucket v,
-// then the element strides (batch, seq, head) of q, k, v and dout.
-// ptrs: q, k, v, dout, out, lse, delta, o, dq, dk, dv (unused ones null).
+// then the element strides (batch, seq, head) of q, k, v and dout, then
+// the route. ptrs: q, k, v, dout, out, lse, delta, o, dq, dk, dv (unused
+// ones null).
 int launch(void* const* ptrs, const long long* n, float scale, int dtype,
            bool bwd, void* stream) {
   Args a;
@@ -825,8 +1724,10 @@ int launch(void* const* ptrs, const long long* n, float scale, int dtype,
     return cudaErrorInvalidValue;
   a.n_rep = a.H / a.KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, bd, bdv, bwd, st);
-  if (dtype == 1) return dispatch<bf16>(a, bd, bdv, bwd, st);
+  const long long route = n[23];
+  if (route == kCudaCores && dtype == 0)
+    return dispatch<float>(a, bd, bdv, bwd, st);
+  if (route == kWgmma && dtype == 1) return wg::dispatch(a, bd, bdv, bwd, st);
   return cudaErrorInvalidValue;
 }
 

@@ -3,14 +3,28 @@
 
 Port of ``repro.models.attention._flash_attention`` and its ``custom_vjp``.
 The reference is plain jnp, not a Pallas kernel (XLA fuses its chunk loops
-under ``jit`` on the TPU); on the card the port runs a hand-written
-``mma.sync`` kernel instead of its eager chunk loop. The source's note says
-what bounds it and how it is laid out.
+under ``jit`` on the TPU); on the card the port runs a hand-written kernel
+instead of its eager chunk loop, on the route that ``route`` picks from the
+dtype and the head-dim bucket alone:
+
+- ``wgmma``: bf16; Hopper's warpgroup products fed by TMA, instances at
+  the buckets every LM config reaches (64/64, 128/128, 192/128; a smaller
+  bucket runs zero-padded on 64/64); one forward and two backward launches
+  (dq with delta, then dk/dv) a call;
+- ``cuda_cores``: float32 at every bucket, the first kernel's f32
+  products; one forward and three backward launches (delta, dk/dv, dq).
+
+The source's note says what bounds each route and how it is laid out. A
+CUDA tensor takes its route or raises: nothing runs another route when a
+build or a launch fails.
 
 - ``flash_attention_fwd``: (out, lse) from q (B, T, H, dqk), k (B, S, KV,
-  dqk), v (B, S, KV, dv); one launch.
+  dqk), v (B, S, KV, dv).
 - ``flash_attention_bwd``: (dq, dk, dv) from the forward's inputs, its out
-  and lse and the output's gradient; three launches (delta, dk/dv, dq).
+  and lse and the output's gradient.
+
+Each counts its kernel launches (``launches``) and, per route, in
+``routes``.
 
 Both take the reference's ``q_start`` (global position of query row 0),
 ``causal``, ``q_chunk``, ``kv_chunk`` and ``scale``. The chunks only choose
@@ -44,6 +58,11 @@ _ARGTYPES = [ctypes.POINTER(ctypes.c_void_p),
              ctypes.c_int, ctypes.c_void_p]
 # the (qk, v) head-dim buckets the CUDA source instantiates, cheapest first
 BUCKETS = ((32, 32), (48, 32), (64, 64), (128, 128), (192, 128))
+# the wgmma route's instances, cheapest first
+WGMMA_BUCKETS = ((64, 64), (128, 128), (192, 128))
+# the launcher's route codes, and each route's launches a backward call
+ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
+BWD_LAUNCHES = {"cuda_cores": 3, "wgmma": 2}
 
 
 def bucket(dqk: int, dv: int) -> tuple[int, int]:
@@ -59,6 +78,24 @@ def bucket(dqk: int, dv: int) -> tuple[int, int]:
     raise ValueError(f"the flash attention kernel takes qk head dims up to "
                      f"{BUCKETS[-1][0]} and v head dims up to "
                      f"{BUCKETS[-1][1]}, got {dqk} and {dv}")
+
+
+def route(dtype: torch.dtype, dims: tuple[int, int]
+          ) -> tuple[str, tuple[int, int]]:
+    """The kernel route for inputs of ``dtype`` at the bucket ``dims`` (a
+    ``bucket`` result), and the route's instance that runs it: ``wgmma``
+    (bf16) or ``cuda_cores`` (float32). Raises for a dtype or a bucket no
+    route takes."""
+    dims = tuple(dims)
+    if dims not in BUCKETS:
+        raise ValueError(f"{dims} is not a head-dim bucket of the kernel "
+                         f"({BUCKETS})")
+    if dtype == torch.float32:
+        return "cuda_cores", dims
+    if dtype == torch.bfloat16:
+        return "wgmma", next(w for w in WGMMA_BUCKETS
+                             if dims[0] <= w[0] and dims[1] <= w[1])
+    raise TypeError(f"no flash attention route takes {dtype}")
 
 
 def _check(q, k, v, q_chunk: int, kv_chunk: int) -> None:
@@ -113,9 +150,11 @@ def _launch(symbol: str, ptrs: list[int], ints: list[int], scale: float,
                            f"error {err}")
 
 
-def _cuda_args(q, k, v, q_start: int, causal: bool, dout=None) -> list[int]:
-    """The launcher's integers: sizes, q_start, causal, the bucket, then the
-    (batch, seq, head) strides of q, k, v and dout."""
+def _cuda_args(q, k, v, q_start: int, causal: bool, dout=None
+               ) -> tuple[list[int], str]:
+    """The launcher's integers (sizes, q_start, causal, the route's
+    instance, the (batch, seq, head) strides of q, k, v and dout, then the
+    route's code) and the route."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, t, h, dqk = q.shape
@@ -125,8 +164,9 @@ def _cuda_args(q, k, v, q_start: int, causal: bool, dout=None) -> list[int]:
                          f"dimension (65535)")
     strides = [*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
                *(_strides(dout, "dout") if dout is not None else (0, 0, 0))]
-    return [b, t, s, h, kv, dqk, dv, int(q_start), int(causal),
-            *bucket(dqk, dv), *strides]
+    way, dims = route(q.dtype, bucket(dqk, dv))
+    return [b, t, s, h, kv, dqk, dv, int(q_start), int(causal), *dims,
+            *strides, ROUTE_CODES[way]], way
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,7 +180,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type in ("cpu", "meta"):
         return flash_attention_fwd_ref(q, k, v, q_start, causal, q_chunk,
                                        kv_chunk, scale)
-    ints = _cuda_args(q, k, v, q_start, causal)
+    ints, way = _cuda_args(q, k, v, q_start, causal)
     b, t, h, _ = q.shape
     kv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
@@ -151,6 +191,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("flash_attention_fwd_launch", ptrs, ints, scale, q.dtype,
             q.device)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[way] += 1
     return out, lse
 
 
@@ -177,7 +218,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "out's shape, on q's device")
     out, lse = out.contiguous(), lse.contiguous()
     dout = dout.to(q.dtype).contiguous()
-    ints = _cuda_args(q, k, v, q_start, causal, dout)
+    ints, way = _cuda_args(q, k, v, q_start, causal, dout)
     delta = torch.empty_like(lse)
     dq = torch.empty((b, t, h, dqk), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, dqk), dtype=k.dtype, device=q.device)
@@ -187,9 +228,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr()]
     _launch("flash_attention_bwd_launch", ptrs, ints, scale, q.dtype,
             q.device)
-    flash_attention_bwd.launches += 3     # delta, dk/dv, dq
+    flash_attention_bwd.launches += BWD_LAUNCHES[way]
+    flash_attention_bwd.routes[way] += BWD_LAUNCHES[way]
     return dq, dk, dvv
 
 
 flash_attention_fwd.launches = 0    # kernel launches since the last reset
 flash_attention_bwd.launches = 0    # kernel launches since the last reset
+flash_attention_fwd.routes = dict.fromkeys(ROUTE_CODES, 0)    # by route
+flash_attention_bwd.routes = dict.fromkeys(ROUTE_CODES, 0)    # by route

@@ -680,7 +680,8 @@ def test_flash_attention_on_card_vs_cpu(gen):
 # CASES (GQA, t < s, bidirectional, MLA 48/32, and a 96-row shape that is
 # one chunk), then n_rep 7 and 8, an explicit q_start, and q_start < 0,
 # where the first rows see no key (each is the mean of v, and its backward
-# p is 1 on every key)
+# p is 1 on every key); then n_rep 6 at d 128, and a T and an S that no
+# tile divides (TMA zero-fills past both; keys past S still read -inf)
 ATTN_CASES = [
     (2, 1024, 1024, 4, 2, 64, 64, True, None),
     (1, 512, 2048, 8, 8, 32, 32, True, None),
@@ -691,6 +692,9 @@ ATTN_CASES = [
     (2, 256, 256, 8, 1, 128, 128, True, None),
     (1, 512, 1024, 4, 2, 32, 32, True, 256),
     (2, 256, 256, 4, 2, 64, 64, True, -100),
+    (1, 512, 512, 12, 2, 128, 128, True, None),
+    (2, 160, 200, 6, 2, 128, 128, True, None),
+    (1, 100, 200, 4, 2, 64, 64, False, None),
 ]
 # float32: the reference's own tolerances (tests/test_torch_attention.py),
 # output and lse atol 2e-5, gradients 5e-4, rtol 0; bf16: relative L2 2e-2
@@ -723,19 +727,30 @@ def _attn_close(got, want, dtype, atol):
 
 def _attn_vs_plain(gen, b, t, s, h, kv, dqk, dv, causal, q_start, dtype,
                    split_v=False):
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+    """The kernel against its plain version, through the route its dtype
+    takes (bf16: wgmma, float32: the CUDA cores), counted on that route."""
+    from repro_torch.kernels.flash_attention import (BWD_LAUNCHES, bucket,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     route)
     q, k, v, dout = _attn_inputs(gen, b, t, s, h, kv, dqk, dv, dtype,
                                  split_v)
     qc, kc = min(256, t), min(256, s)
     args = (s - t if q_start is None else q_start, causal, qc, kc,
             dqk ** -0.5)
+    way = route(dtype, bucket(dqk, dv))[0]
+    assert way == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
     f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    rf0, rb0 = (dict(flash_attention_fwd.routes),
+                dict(flash_attention_bwd.routes))
     out, lse = flash_attention_fwd(q, k, v, *args)
     grads = flash_attention_bwd(q, k, v, out, lse, dout, *args)
     torch.cuda.synchronize()
     assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == \
-        (f0 + 1, b0 + 3)
+        (f0 + 1, b0 + BWD_LAUNCHES[way])
+    assert flash_attention_fwd.routes == {**rf0, way: rf0[way] + 1}
+    assert flash_attention_bwd.routes == \
+        {**rb0, way: rb0[way] + BWD_LAUNCHES[way]}
     want_out, want_lse = ops.attn_fwd_ref(q, k, v, *args)
     want_grads = ops.attn_bwd_ref(q, k, v, want_out, want_lse, dout, *args)
     _attn_close([out], [want_out], dtype, 2e-5)
@@ -793,7 +808,7 @@ class TestFlashAttentionKernel:
         out = flash_attention(q, k, v, q_chunk=128, kv_chunk=128)
         torch.autograd.grad(out, (q, k, v), dout)
         assert (flash_attention_fwd.launches,
-                flash_attention_bwd.launches) == (f0 + 1, b0 + 3)
+                flash_attention_bwd.launches) == (f0 + 1, b0 + 2)
         for dqk, dv in ((256, 64), (64, 256), (12, 12)):
             a, b_, c, _ = _attn_inputs(gen, 1, 64, 64, 2, 2, dqk, dv,
                                        torch.float32)
@@ -807,7 +822,7 @@ class TestFlashAttentionKernel:
             flash_attention_fwd(q.detach().float(), k.detach(), v.detach(),
                                 0, True, 128, 128, 0.1)
         assert (flash_attention_fwd.launches,
-                flash_attention_bwd.launches) == (f0 + 1, b0 + 3)
+                flash_attention_bwd.launches) == (f0 + 1, b0 + 2)
 
 
 # -- the LM's mesh branches at world size 1 over NCCL -----------------------

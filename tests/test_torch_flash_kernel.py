@@ -8,8 +8,9 @@ marked ``cuda``). Here:
 - on CPU and meta tensors the wrappers run the plain version and launch
   nothing (the dry-run and ``op_stats`` count the plain chunk loop's
   operations, unchanged by the kernel);
-- the contract the wrappers hold on every device, and the head-dim buckets
-  they pick for the kernel;
+- the contract the wrappers hold on every device, the head-dim buckets
+  they pick for the kernel and the route each (dtype, bucket) takes on the
+  card (bf16 on wgmma, float32 on the CUDA cores), counted per route;
 - the plain version against ``repro.models.attention.flash_attention`` for
   rows that see no key (``q_start < 0``) and for a ``v`` that is a split
   view: float32, the reference's own tolerances (output ``atol=2e-5``,
@@ -47,7 +48,10 @@ def _qkv(b, t, s, h, kv, dq, dv, seed=0):
 
 
 def _counts():
-    return fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    """Both wrappers' launches, in all and by route."""
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            dict(fa.flash_attention_fwd.routes),
+            dict(fa.flash_attention_bwd.routes))
 
 
 def _meta(*shape):
@@ -115,6 +119,36 @@ class TestWrappersOffTheCard:
     def test_bucket_raises_for_dims_the_kernel_does_not_take(self, dims):
         with pytest.raises(ValueError):
             fa.bucket(*dims)
+
+    @pytest.mark.parametrize("dims", fa.BUCKETS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_route_of_every_dtype_and_bucket(self, dtype, dims):
+        """float32 runs its own bucket on the CUDA cores; bf16 runs on
+        wgmma, a bucket under 64/64 on the 64/64 instance (zero-padded)."""
+        way, inst = fa.route(dtype, dims)
+        if dtype == torch.float32:
+            assert (way, inst) == ("cuda_cores", dims)
+        else:
+            assert way == "wgmma" and inst in fa.WGMMA_BUCKETS
+            assert inst == (dims if dims in fa.WGMMA_BUCKETS else (64, 64))
+        assert fa.BWD_LAUNCHES[way] == (2 if way == "wgmma" else 3)
+        assert set(fa.ROUTE_CODES) == set(fa.flash_attention_fwd.routes) \
+            == set(fa.flash_attention_bwd.routes) == set(fa.BWD_LAUNCHES)
+
+    @pytest.mark.parametrize("dtype,dims,exc", [
+        (torch.float16, (64, 64), TypeError),
+        (torch.float64, (128, 128), TypeError),
+        (torch.bfloat16, (96, 96), ValueError),
+        (torch.bfloat16, (256, 128), ValueError),
+        (torch.float32, (64, 128), ValueError)])
+    def test_route_raises_for_what_no_route_takes(self, dtype, dims, exc):
+        with pytest.raises(exc):
+            fa.route(dtype, dims)
+
+    def test_launcher_args_refuse_a_tensor_off_the_card(self):
+        q, k, v, _ = map(torch.from_numpy, _qkv(1, 64, 64, 2, 1, 48, 32))
+        with pytest.raises(ValueError, match="unsupported device"):
+            fa._cuda_args(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0, True)
 
 
 class TestPlainVersionAgainstReference:
