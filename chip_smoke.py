@@ -5,9 +5,9 @@ Phases, each of which fails the run when it fails:
 
 1. build: ``nvcc`` compiles the three kernels from
    ``src/repro_torch/kernels/csrc`` for sm_90a, one process per source, all
-   at once (flash attention's 25 template instances take about 15-23 s,
-   the others a few), and the wgmma instructions in the flash library's
-   SASS counted;
+   at once (flash attention's 18 template instances, nine a route, take
+   the longest, the others a few s), and the wgmma instructions in the
+   flash library's SASS counted;
 2. check: every kernel entry against its plain PyTorch version on the card,
    in f32 and bf16: the per-table SLS (all-hot and all-cold bags) and the
    grouped SLS over 26 tables x 1M rows with rank_of (and without) at the
@@ -593,16 +593,18 @@ def counts(**launches: int) -> dict[str, int]:
 def check_lm_launches(phase: str, launches: dict[str, int],
                       routes: dict[str, dict[str, int]], fwd: int,
                       bwd: int = 0, wgmma_fwd: int = 0,
-                      wgmma_bwd: int = 0) -> None:
+                      wgmma_bwd: int = 0, cc_bwd: int = 0) -> None:
     """An LM path: no DLRM kernel; at least ``fwd`` flash attention
     forward launches (its layers times its calls) and ``bwd`` backward
-    launches (two a bf16 backward call, three a float32 one); and at least
-    ``wgmma_fwd`` and ``wgmma_bwd`` of them on the wgmma route (its bf16
+    launches (two a backward call on either route); at least ``wgmma_fwd``
+    and ``wgmma_bwd`` of them on the wgmma route (its bf16 calls) and
+    ``cc_bwd`` backward launches on the cuda_cores route (its float32
     calls)."""
     print(f"[{phase}] launches of the port's kernels over the phase: "
           f"{launches}; by route {routes}; at least {fwd} attention forward "
-          f"and {bwd} backward launches expected, {wgmma_fwd} and "
-          f"{wgmma_bwd} of them on the wgmma route")
+          f"and {bwd} backward launches expected (two a backward call), "
+          f"{wgmma_fwd} and {wgmma_bwd} of them on the wgmma route, "
+          f"{cc_bwd} backward ones on the cuda_cores route")
     if any(launches[k] for k in DLRM_KERNELS):
         raise AssertionError(f"the {phase} path launched a DLRM kernel")
     if launches["flash_attention_fwd"] < fwd or \
@@ -613,6 +615,9 @@ def check_lm_launches(phase: str, launches: dict[str, int],
             routes["flash_attention_bwd"]["wgmma"] < wgmma_bwd:
         raise AssertionError(f"the {phase} path's bf16 attention did not "
                              f"run on the wgmma route: {routes}")
+    if routes["flash_attention_bwd"]["cuda_cores"] < cc_bwd:
+        raise AssertionError(f"the {phase} path's float32 backward did not "
+                             f"run on the cuda_cores route: {routes}")
 
 
 def phase_retrieval(res: serve_mod.ServeResult) -> dict:
@@ -2241,6 +2246,9 @@ ATTN_SHAPE = dict(b=8, t=LM_SEQ, h=16, kv=8, d=128)
 MLA_SHAPE = dict(b=2, t=LM_SEQ, h=128, kv=128, d=192, dv=128, split_v=True)
 CP_SHAPE = dict(b=8, t=LM_SEQ // 4, s=LM_SEQ, h=14, kv=2, d=64,
                 q_start=LM_SEQ // 2)
+# the attention of lm-100m's float32 training (launch/train.py --model lm at
+# LM_TRAIN_BATCH, seq 256): 8 query heads over 4 kv heads, d 64
+LM100M_ATTN_SHAPE = dict(b=LM_TRAIN_BATCH, t=256, h=8, kv=4, d=64)
 # the kernel against its plain version in float32: the reference's own
 # tolerances (tests/test_torch_attention.py), rtol 0
 ATTN_F32_OUT_TOL = dict(rtol=0, atol=2e-5)
@@ -2623,13 +2631,17 @@ def sdpa(q, k, v):
 def phase_attention_check(gen: torch.Generator) -> dict[str, float]:
     """flash attention's kernel against its plain version on the card,
     forward (out, lse) and backward (dq, dk, dv), float32 and bf16, at
-    ATTN_SHAPE, MLA_SHAPE and CP_SHAPE. Returns the float32 max abs
-    errors at ATTN_SHAPE."""
+    ATTN_SHAPE, MLA_SHAPE and CP_SHAPE, and float32 at LM100M_ATTN_SHAPE
+    (lm-100m's training). Returns the float32 max abs errors at
+    ATTN_SHAPE."""
     err = {}
-    for label, shape in (("qwen3-1.7b prefill", ATTN_SHAPE),
-                         ("deepseek-v3 MLA", MLA_SHAPE),
-                         ("context-parallel block", CP_SHAPE)):
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for label, shape, dtypes in (
+            ("qwen3-1.7b prefill", ATTN_SHAPE, both),
+            ("deepseek-v3 MLA", MLA_SHAPE, both),
+            ("context-parallel block", CP_SHAPE, both),
+            ("lm-100m train", LM100M_ATTN_SHAPE, (torch.float32,))):
+        for dtype in dtypes:
             q, k, v, dout = attn_inputs(shape, dtype, gen)
             args = attn_args(shape)
             out, lse = flash_attention_fwd(q, k, v, *args)
@@ -2729,8 +2741,10 @@ def attn_times(shape: dict, dtype: torch.dtype, gen: torch.Generator,
 
 def lm_attention_yardstick(card: str) -> dict:
     """flash attention on the card (not counted: the main path's launches
-    are read before): its times at ATTN_SHAPE in bf16 and float32 and at
-    MLA_SHAPE in bf16, each beside the plain version, SDPA and the bound;
+    are read before): its times at ATTN_SHAPE in bf16 and float32, at
+    MLA_SHAPE in bf16 and at LM100M_ATTN_SHAPE in float32 (the shape
+    lm-100m's training launches), each beside the plain version, SDPA and
+    the bound;
     and the kernel's bf16 forward and gradients against SDPA's at
     ATTN_SHAPE."""
     from repro_torch.models.attention import flash_attention
@@ -2749,6 +2763,8 @@ def lm_attention_yardstick(card: str) -> dict:
     out = {"bf16": attn_times(ATTN_SHAPE, torch.bfloat16, gen, card),
            "f32": attn_times(ATTN_SHAPE, torch.float32, gen, card),
            "mla": attn_times(MLA_SHAPE, torch.bfloat16, gen, card),
+           "f32_lm100m": attn_times(LM100M_ATTN_SHAPE, torch.float32, gen,
+                                    card),
            "sdpa_err": err}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2761,7 +2777,8 @@ def attention_record(att: dict, err: dict[str, float],
                      build: dict) -> dict:
     """The kernel's record for the ``kernels`` line: the forward at
     ATTN_SHAPE in bf16 (the LM's dtype), its backward as the entry, each
-    with its float32 and MLA times, its launches by route on each LM path
+    with its float32 times at ATTN_SHAPE and LM100M_ATTN_SHAPE and its MLA
+    times, its launches by route on each LM path
     (``routes``: path -> wrapper -> route -> launches), and the build
     phase's seconds and its SASS's HGMMA count by shape."""
     src = dict(route="cuda",
@@ -2780,6 +2797,9 @@ def attention_record(att: dict, err: dict[str, float],
                     library_ms=b["library_ms"][p],
                     f32={k: att["f32"][k][p] for k in
                          ("ms", "plain_ms", "library_ms", "bound_ms")},
+                    f32_lm100m={k: att["f32_lm100m"][k][p] for k in
+                                ("ms", "plain_ms", "library_ms",
+                                 "bound_ms")},
                     mla={k: att["mla"][k][p] for k in
                          ("ms", "plain_ms", "library_ms", "bound_ms")})
 
@@ -2790,6 +2810,7 @@ def attention_record(att: dict, err: dict[str, float],
                launches=launches["flash_attention_fwd"],
                max_abs_err=err["flash_attention_fwd"], **part("fwd"),
                shape=dict(ATTN_SHAPE), mla_shape=dict(MLA_SHAPE),
+               f32_lm100m_shape=dict(LM100M_ATTN_SHAPE),
                fwd_bwd=part("both"), sdpa_rel_l2=att["sdpa_err"],
                launches_by_route=by_route("flash_attention_fwd"), **build)
     rec["entries"] = [dict(name="flash_attention", entry="flash_attention_bwd",
@@ -2988,13 +3009,14 @@ def phase_lm(card: str) -> dict:
     launches, routes = read_counts(), read_routes()
     # qwen3-1.7b's serve alone, bf16 (the wgmma route): three timed
     # prefills, prefill_and_decode's and the full forward, each through
-    # every layer; lm-100m's in-process steps at LM_TRAIN_BATCH in float32,
-    # three backward launches a layer a step; deepseek's bf16 train_loss,
-    # two a layer
+    # every layer; lm-100m's in-process steps at LM_TRAIN_BATCH in float32
+    # (the cuda_cores route), two backward launches a layer a step;
+    # deepseek's bf16 train_loss, two a layer
     n_qwen = configs.LM_ARCHS["qwen3-1.7b"].n_layers
     check_lm_launches("lm", launches, routes, fwd=5 * n_qwen,
-                      bwd=3 * 4 * configs.LM_100M.n_layers,
-                      wgmma_fwd=5 * n_qwen, wgmma_bwd=2)
+                      bwd=2 * 4 * configs.LM_100M.n_layers,
+                      wgmma_fwd=5 * n_qwen, wgmma_bwd=2,
+                      cc_bwd=2 * 4 * configs.LM_100M.n_layers)
     out["launches"], out["routes"] = launches, routes
     out["attention"] = lm_attention_yardstick(card)
     out["layers"] = lm_layers(card)
@@ -3821,7 +3843,7 @@ def main() -> int:
     tr = lm_out["train"]
     print(f"[lm] lm-100m on {card}: batch {tr['batch']}, seq 256: "
           f"{tr['step_ms']:.1f} ms per warm step, peak {tr['peak_gb']:.2f} GB")
-    for dt in ("bf16", "f32", "mla"):
+    for dt in ("bf16", "f32", "mla", "f32_lm100m"):
         a = att[dt]
         print(f"[lm] flash attention {dt} on {card}: "
               + "; ".join(f"{p} {a['ms'][p]:.3f} ms (plain "

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = ("recflash_sls", "dot_interaction", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# a source's own flags: flash attention's 25 template instances optimise in
+# a source's own flags: flash attention's 18 template instances optimise in
 # parallel, one thread a CPU, and it links the driver API for its TMA maps
 # (cuTensorMapEncodeTiled)
 EXTRA_FLAGS = {"flash_attention": ("--split-compile", "0", "-lcuda")}

@@ -37,17 +37,40 @@
 // (kernels/flash_attention.py, route) and passes its code; a launch on a
 // route that has no instance for the bucket fails, never falls back.
 //
-// 1. wgmma (bf16): the Hopper design below, instances 64/64, 128/128 and
-//    192/128 (every LM config's head dims); the test-only buckets 32/32
-//    and 48/32 run on 64/64, zero-padded by TMA.
-// 2. cuda_cores (float32, every bucket): the first FlashAttention-2
-//    kernels, unchanged (the kernels outside namespace wg), on the CUDA
-//    cores in f32 with mma.sync's fragment layout: TF32 would keep 10
-//    mantissa bits and break the f32 tolerances. Four warps a block over
-//    64 grouped rows, 16 rows a warp; K/V double-buffered by 16-byte
-//    cp.async copies into rows padded by 16 bytes; three backward
-//    launches (delta, dk/dv, dq).
-//    Bound by the CUDA cores' 67 TFLOP/s.
+// 1. wgmma (bf16): the Hopper design below.
+// 2. cuda_cores (float32): the register-blocked design in namespace cc, on
+//    the CUDA cores in exact f32 (fmaf and expf): TF32 would keep 10
+//    mantissa bits and break the f32 tolerances.
+// Both build the instances 64/64, 128/128 and 192/128 (every LM config's
+// head dims); the test-only buckets 32/32 and 48/32 run on 64/64,
+// zero-padded (by TMA, and by cp.async's zero fill), and both make two
+// backward launches.
+//
+// The cuda_cores route (FlashAttention-2's loops, as SIMT SGEMM tiles):
+// - What bounds it: the CUDA cores' 67 TFLOP/s. Each product is a
+//   register-blocked tile (prod_nt, prod_nn): lanes 4 rows x 8 columns,
+//   each thread 4 x 2 to 4 x 24 outputs, operands read 16 bytes at a time
+//   from rows padded by 16 bytes, so no load has a bank conflict, and a
+//   warp issues MT + NT loads per four k for 4 MT NT FMAs.
+//   tools/flash_f32_probe.py times these loops alone, and the loads they
+//   issue, on the card (PERF.md, the findings of the float32 route); the
+//   softmax, the copies and the barriers take the kernels to about 50%.
+// - One 256-thread block an SM (eight warps; up to 221 KB of shared memory,
+//   up to 255 registers a thread), K/V (forward, dq) or Q/dO/lse/delta
+//   (dk/dv) double-buffered by 16-byte cp.async copies that also zero the
+//   columns past d and the rows past T or S, so no tile is ever cleared.
+// - A warp owns its rows (forward, dq) or keys (dk/dv) in every product
+//   of a step, so P and dS pass through shared memory between its two
+//   products with a __syncwarp only.
+// - Forward: a block takes 128 positions of one query head, longest
+//   first, 64 keys a step (48 at 192/128): S = Q K^T, the online softmax,
+//   P into K's place (one barrier), O += P V.
+// - Backward, two launches, as the wgmma route's: dq (128 positions of one
+//   head, 32 keys a step, 16 at 192/128) first sums delta = rowsum(dO O)
+//   for its rows and writes it out, then S and dP in one loop and dQ +=
+//   dS K; dk/dv (128 keys of one kv head) walks every query head of the
+//   group and every query tile that sees its keys, 32 rows a step (16 at
+//   192/128): S^T and dP^T, dV += P^T dO, dK += dS^T Q. No atomics.
 //
 // The wgmma route (FlashAttention-3's shape, Shah et al., arXiv:2407.08608):
 // - Every block is three warpgroups: two consumers of 64 rows each and one
@@ -105,9 +128,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: finite
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // query rows (forward, dq) or keys (dk/dv)
 
 // A (B, L, heads, d) tensor read through its element strides; d contiguous.
 struct View {
@@ -134,19 +154,7 @@ __device__ __forceinline__ const T* row_of(const View& v, long long b,
   return static_cast<const T*>(v.p) + b * v.sb + l * v.sl + h * v.sh;
 }
 
-// grouped query row r of kv head kvh: head kvh * n_rep + r % n_rep at r / n_rep
-template <typename T>
-__device__ __forceinline__ const T* grouped_row(const View& v, int b, int kvh,
-                                                int n_rep, int r) {
-  return row_of<T>(v, b, r / n_rep, kvh * n_rep + r % n_rep);
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-// two neighbouring elements of a row, rounded to the element type
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
+// two neighbouring elements of a row, rounded to bf16
 __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
@@ -156,8 +164,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// exp: exact-rounded expf for f32 (its tolerance is the reference's own)
-__device__ __forceinline__ float fexp(float x, float) { return expf(x); }
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The key tiles [0, end) a query tile of rows [r0, r1) reads, `bn` keys a
+// tile: all of them unless causal and every row sees key 0.
+__device__ __forceinline__ int key_tiles(const Args& a, int r0, int r1,
+                                         int bn) {
+  const int n_tiles = (a.S + bn - 1) / bn;
+  const int q_lo = a.q_start + r0 / a.n_rep;
+  const int q_hi = a.q_start + (r1 - 1) / a.n_rep;
+  if (!a.causal || q_lo < 0) return n_tiles;
+  return min(n_tiles, q_hi / bn + 1);
+}
+
+// ======================================== the CUDA-core route (float32) ==
+namespace cc {
+
+constexpr int kThreads = 256;  // eight warps, one block an SM
 
 // ---------------------------------------------------------------- copies --
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
@@ -180,523 +211,613 @@ __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows [0, n) of a tile into shared memory rows of `ld` elements: `d`
-// elements of row i from row(i), or zeros where row(i) is null. The columns
-// [d, ld) are never written (zeroed once at the kernel's start).
-template <typename T, typename RowFn>
-__device__ __forceinline__ void load_tile(T* s, int ld, int n, int d,
+// Rows [0, n) of a tile D floats wide into shared rows of `ld` floats: the
+// first d floats of row i from row(i), zeros past d and where row(i) is
+// null; every column a product reads is written, so no tile is ever
+// cleared (P and dS reuse other tiles' space).
+template <int D, typename RowFn>
+__device__ __forceinline__ void load_rows(float* s, int ld, int n, int d,
                                           const void* base, RowFn row) {
-  constexpr int E = 16 / sizeof(T);
-  const int chunks = d / E;
-  for (int i = threadIdx.x; i < n * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * E;
-    const T* src = row(r);
-    cp16(s + r * ld + c, src ? static_cast<const void*>(src + c) : base,
-         src != nullptr);
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  constexpr int DR = kThreads / C, DC = kThreads % C;
+  int r = threadIdx.x / C, c = threadIdx.x % C;  // chunk (r, c), then on
+  while (r < n) {                                 // by kThreads chunks
+    const float* src = row(r);
+    const bool ok = src != nullptr && 4 * c < d;
+    cp16(s + r * ld + 4 * c, ok ? static_cast<const void*>(src + 4 * c) : base,
+         ok);
+    r += DR;
+    c += DC;
+    if (DC && c >= C) {
+      c -= C;
+      ++r;
+    }
   }
 }
 
-__device__ __forceinline__ void zero_smem(unsigned char* s, int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
-    *reinterpret_cast<uint4*>(s + i) = make_uint4(0, 0, 0, 0);
+// ------------------------------------------------------------- products --
+// Register-blocked SIMT products. A warp's lanes are 4 rows by 8 columns:
+// lane (la, lb) = (lane / 8, lane % 8) holds rows la + 4 i (i < MT) of its
+// warp's tile. Every operand is read from shared memory 16 bytes at a time,
+// four k of a row of A, then four k (nt) or four columns (nn) of B, and
+// each k runs from registers as MT x NT FMAs: per four k a warp issues MT +
+// NT loads, each of 4 or 8 distinct 16-byte chunks, at most 128 bytes (on
+// rows padded by 16 bytes, so a quarter-warp's eight rows fall on distinct
+// banks), for 4 MT NT FMAs. Each output sums its k in order, so reruns
+// are bit-equal.
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// ------------------------------------------------------- warp products, f32
-// A warp's 16 rows of the two products on the CUDA cores, each thread
-// computing the elements an mma.sync C fragment would give it with f32
-// FMAs: acc[n] holds columns [8n, 8n + 8), elements (g, 2tq), (g, 2tq + 1),
-// (g + 8, 2tq), (g + 8, 2tq + 1), g = lane / 4, tq = lane % 4.
-// mma_nt: acc (16 x N) += A (16 x D, rows at a, stride lda) . B^T, B (N x D,
-// rows at b, stride ldb); mma_pn: acc (16 x N) += P (16 x K, C fragments in
-// registers) . B (K x N, row-major at b, stride ldb).
-template <int D, int N>
-__device__ __forceinline__ void mma_nt(float (&acc)[N / 8][4], const float* a,
-                                       int lda, const float* b, int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const float* a0 = a + g * lda;
-  const float* a1 = a0 + 8 * lda;
-  const float* b0 = b + 2 * tq * ldb;
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c[i][j] += sum_k a[4 i LA + k] b[8 j LB + k], k < K: a at the thread's
+// first row of A, b at its first row of B^T (columns lb + 8 j)
+template <int MT, int NT, int K, int LA, int LB>
+__device__ __forceinline__ void prod_nt(float (&c)[MT][NT], const float* a,
+                                        const float* b) {
 #pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    const float x0 = a0[k], x1 = a1[k];
+  for (int k = 0; k < K; k += 4) {
+    float4 x[MT], y[NT];
 #pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const float y0 = b0[n * 8 * ldb + k], y1 = b0[(n * 8 + 1) * ldb + k];
-      acc[n][0] = fmaf(x0, y0, acc[n][0]);
-      acc[n][1] = fmaf(x0, y1, acc[n][1]);
-      acc[n][2] = fmaf(x1, y0, acc[n][2]);
-      acc[n][3] = fmaf(x1, y1, acc[n][3]);
+    for (int i = 0; i < MT; ++i) x[i] = lds4(a + 4 * i * LA + k);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) y[j] = lds4(b + 8 * j * LB + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          c[i][j] = fmaf(at(x[i], e), at(y[j], e), c[i][j]);
+  }
+}
+
+// Two nt products of one tile shape in one loop (S and dP in the backward):
+// c += A B^T over k < KA and d += E F^T over k < KE, each summing its k in
+// order as prod_nt does; the k both share run together, which doubles the
+// independent sums a thread has in flight
+template <int MT, int NT, int KA, int KE, int LA, int LE>
+__device__ __forceinline__ void prod_nt2(float (&c)[MT][NT], const float* a,
+                                         const float* b, float (&d)[MT][NT],
+                                         const float* e, const float* f) {
+  constexpr int K = KA < KE ? KA : KE;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[MT], y[NT], u[MT], w[NT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      x[i] = lds4(a + 4 * i * LA + k);
+      u[i] = lds4(e + 4 * i * LE + k);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      y[j] = lds4(b + 8 * j * LA + k);
+      w[j] = lds4(f + 8 * j * LE + k);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          c[i][j] = fmaf(at(x[i], q), at(y[j], q), c[i][j]);
+          d[i][j] = fmaf(at(u[i], q), at(w[j], q), d[i][j]);
+        }
+  }
+  if constexpr (KA > K) prod_nt<MT, NT, KA - K, LA, LA>(c, a + K, b + K);
+  if constexpr (KE > K) prod_nt<MT, NT, KE - K, LE, LE>(d, e + K, f + K);
+}
+
+// c[i][4 g + e] += sum_k a[4 i LA + k] b[k LB + 32 g + e], k < K: a at the
+// thread's first row of A, b at row 0 of B, column 4 lb (columns 4 lb + 32
+// g + e of the warp's tile)
+template <int MT, int NT, int K, int LA, int LB>
+__device__ __forceinline__ void prod_nn(float (&c)[MT][NT], const float* a,
+                                        const float* b) {
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) x[i] = lds4(a + 4 * i * LA + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 y[NT / 4];
+#pragma unroll
+      for (int g = 0; g < NT / 4; ++g) y[g] = lds4(b + (k + e) * LB + 32 * g);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          c[i][n] = fmaf(at(x[i], e), at(y[n / 4], n % 4), c[i][n]);
     }
   }
 }
 
-template <int K, int N>
-__device__ __forceinline__ void mma_pn(float (&acc)[N / 8][4],
-                                       const float (&p)[K / 8][4],
-                                       const float* b, int ldb) {
-  const int lane = threadIdx.x % 32, tq = lane % 4;
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&x)[M][N]) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    // p[row][k] lives in the quad's thread (k % 8) / 2
-    const int src = (lane & ~3) | ((k % 8) / 2);
-    const float x0 = __shfl_sync(0xffffffffu, p[k / 8][k % 2], src);
-    const float x1 = __shfl_sync(0xffffffffu, p[k / 8][2 + k % 2], src);
-    const float* row = b + k * ldb + 2 * tq;
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const float2 y = *reinterpret_cast<const float2*>(row + n * 8);
-      acc[n][0] = fmaf(x0, y.x, acc[n][0]);
-      acc[n][1] = fmaf(x0, y.y, acc[n][1]);
-      acc[n][2] = fmaf(x1, y.x, acc[n][2]);
-      acc[n][3] = fmaf(x1, y.y, acc[n][3]);
-    }
+    for (int j = 0; j < N; ++j) x[i][j] = 0.f;
+}
+
+// the sum (or max) over the 8 lanes that share a row
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o *= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// the columns [4 lb + 32 g, + 4) of a thread's row that are below `d`
+template <int N>
+__device__ __forceinline__ void store_row(float* row, const float (&c)[N],
+                                          int lb, int d, float div = 1.f) {
+#pragma unroll
+  for (int g = 0; g < N / 4; ++g) {
+    const int col = 4 * lb + 32 * g;
+    if (col < d)
+      *reinterpret_cast<float4*>(row + col) =
+          make_float4(c[4 * g] / div, c[4 * g + 1] / div, c[4 * g + 2] / div,
+                      c[4 * g + 3] / div);
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Tile shapes and shared memory of one (element type, qk dim, v dim).
-template <typename T, int D, int DV>
-struct Shape {
-  static constexpr int kPad = 16 / sizeof(T);  // 16 bytes a row
-  static constexpr int LQ = D + kPad, LV = DV + kPad;
-  static constexpr int BN = 64;  // keys a forward step
-  // the backward's per-warp accumulators are (D + DV) / 2 f32 a thread;
-  // at the wide dims its steps take 32 rows to leave registers for them
-  static constexpr int BB = D + DV >= 256 ? 32 : 64;
-  static constexpr int fwd_smem = (kRows * LQ + 2 * BN * (LQ + LV)) * sizeof(T);
-  static constexpr int dkdv_smem =
-      (kRows + 2 * BB) * (LQ + LV) * sizeof(T) + 4 * BB * sizeof(float);
-  static constexpr int dq_smem = (kRows + 2 * BB) * (LQ + LV) * sizeof(T);
+// Tile shapes and shared memory (in floats) of one instance. Every row is
+// padded by 4 floats. A warp owns BM / 8 query rows (forward, dq) or BK / 8
+// keys (dk/dv) in every product of a step, so P and dS pass through shared
+// memory between a warp's own two products with no block barrier.
+template <int D, int DV>
+struct Fwd {
+  static constexpr int BM = 128, BN = D > 128 ? 48 : 64;
+  static constexpr int LQ = D + 4, LV = DV + 4, LP = BN + 4;
+  // a stage: K (BN x LQ), which P (BM x LP) overwrites once S is in, then V
+  static constexpr int k_size = BN * LQ > BM * LP ? BN * LQ : BM * LP;
+  static constexpr int stage = k_size + BN * LV;
+  static constexpr int smem = (BM * LQ + 2 * stage) * 4;
 };
 
-// The key tiles [0, end) a query tile of rows [r0, r1) reads, `bn` keys a
-// tile: all of them unless causal and every row sees key 0.
-__device__ __forceinline__ int key_tiles(const Args& a, int r0, int r1,
-                                         int bn) {
-  const int n_tiles = (a.S + bn - 1) / bn;
-  const int q_lo = a.q_start + r0 / a.n_rep;
-  const int q_hi = a.q_start + (r1 - 1) / a.n_rep;
-  if (!a.causal || q_lo < 0) return n_tiles;
-  return min(n_tiles, q_hi / bn + 1);
-}
+template <int D, int DV>
+struct Dq {
+  static constexpr int BM = 128, BN = D > 128 ? 16 : 32;
+  static constexpr int LQ = D + 4, LV = DV + 4, LS = BN + 4;
+  static constexpr int o_off = BM * LQ, k_off = o_off + BM * LV,
+                       stage = BN * (LQ + LV), s_off = k_off + 2 * stage,
+                       l_off = s_off + BM * LS;
+  static constexpr int smem = (l_off + 2 * BM) * 4;
+};
+
+template <int D, int DV>
+struct Dkdv {
+  static constexpr int BK = 128, BM = D > 128 ? 16 : 32;
+  static constexpr int LQ = D + 4, LV = DV + 4, LP = BM + 4;
+  // a stage: Q (BM x LQ), dO (BM x LV), lse (BM), delta (BM)
+  static constexpr int v_off = BK * LQ, q_off = v_off + BK * LV,
+                       stage = BM * (LQ + LV + 2),
+                       p_off = q_off + 2 * stage;
+  static constexpr int smem = (p_off + BK * LP) * 4;
+};
 
 // ---------------------------------------------------------------- forward --
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
-  using C = Shape<T, D, DV>;
-  constexpr int BN = C::BN, LQ = C::LQ, LV = C::LV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kRows * LQ;
-  T* sV = sK + 2 * BN * LQ;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+// One block a (batch, query head, 128 positions), longest first; warp w
+// takes rows [16 w, 16 w + 16). Each step: S = Q K^T (4 x BN / 8 a thread),
+// the online softmax, P into K's place, O += P V (4 x DV / 8 a thread).
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
+  using C = Fwd<D, DV>;
+  constexpr int BM = C::BM, BN = C::BN, LQ = C::LQ, LV = C::LV, LP = C::LP;
+  constexpr int MT = BM / 32, NS = BN / 8, NO = DV / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* stages = smem + BM * LQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.n_rep;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int R = a.T * a.n_rep;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int la = lane / 8, lb = lane % 8, wr = warp * (BM / 8);
+  const int end = key_tiles(a, t0 * a.n_rep, min(t0 + BM, a.T) * a.n_rep, BN);
 
-  zero_smem(smem, C::fwd_smem);
-  __syncthreads();
-  load_tile<T>(sQ, LQ, kRows, a.dqk, a.q.p, [&](int i) -> const T* {
-    return r0 + i < R ? grouped_row<T>(a.q, b, kvh, a.n_rep, r0 + i)
-                      : nullptr;
+  load_rows<D>(sQ, LQ, BM, a.dqk, a.q.p, [&](int i) -> const float* {
+    return t0 + i < a.T ? row_of<float>(a.q, b, t0 + i, h) : nullptr;
   });
-  auto load_kv = [&](int j, int buf) {
+  auto load_kv = [&](int j) {
+    float* st = stages + (j & 1) * C::stage;
     const int k0 = j * BN;
-    load_tile<T>(sK + buf * BN * LQ, LQ, BN, a.dqk, a.k.p,
-                 [&](int i) -> const T* {
-                   return k0 + i < a.S ? row_of<T>(a.k, b, k0 + i, kvh)
-                                       : nullptr;
-                 });
-    load_tile<T>(sV + buf * BN * LV, LV, BN, a.dvd, a.v.p,
-                 [&](int i) -> const T* {
-                   return k0 + i < a.S ? row_of<T>(a.v, b, k0 + i, kvh)
-                                       : nullptr;
-                 });
+    load_rows<D>(st, LQ, BN, a.dqk, a.k.p, [&](int i) -> const float* {
+      return k0 + i < a.S ? row_of<float>(a.k, b, k0 + i, kvh) : nullptr;
+    });
+    load_rows<DV>(st + C::k_size, LV, BN, a.dvd, a.v.p,
+                  [&](int i) -> const float* {
+                    return k0 + i < a.S ? row_of<float>(a.v, b, k0 + i, kvh)
+                                        : nullptr;
+                  });
   };
-  const int end = key_tiles(a, r0, min(r0 + kRows, R), BN);
-  load_kv(0, 0);
+  load_kv(0);
   cp_commit();
 
-  const int ra = r0 + warp * 16 + g;  // this thread's rows: ra and ra + 8
-  const int pos[2] = {a.q_start + ra / a.n_rep, a.q_start + (ra + 8) / a.n_rep};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DV / 8][4];
+  int pos[MT];
+  float m[MT], l[MT], o[MT][NO];
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < MT; ++i) {
+    pos[i] = a.q_start + t0 + wr + la + 4 * i;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  zero(o);
 
   for (int j = 0; j < end; ++j) {
+    cp_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
     if (j + 1 < end) {
-      load_kv(j + 1, (j + 1) & 1);
+      load_kv(j + 1);
       cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
     }
-    __syncthreads();
-    const T* kb = sK + (j & 1) * BN * LQ;
-    const T* vb = sV + (j & 1) * BN * LV;
-    float s[BN / 8][4];
+    float* sK = stages + (j & 1) * C::stage;
+    const float* sV = sK + C::k_size;
+    float s[MT][NS];
+    zero(s);
+    prod_nt<MT, NS, D, LQ, LQ>(s, sQ + (wr + la) * LQ, sK + lb * LQ);
+    const bool edge = (a.causal && j * BN + BN - 1 > a.q_start + t0 + wr) ||
+                      (j + 1) * BN > a.S;
+    float alpha[MT];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_nt<D, BN>(s, sQ + warp * 16 * LQ, LQ, kb, LQ);
-    float mx[2] = {m[0], m[1]};
+    for (int i = 0; i < MT; ++i) {
+      float mx = m[i];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * BN + n * 8 + 2 * tq + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (key >= a.S) x = -INFINITY;  // past the end: not a key at all
-        else if (a.causal && key > pos[e >> 1]) x = kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int n = 0; n < NS; ++n) {
+        float x = s[i][n] * a.scale;
+        if (edge) {
+          const int key = j * BN + lb + 8 * n;
+          if (key >= a.S) x = -INFINITY;  // past the end: not a key at all
+          else if (a.causal && key > pos[i]) x = kNegInf;
+        }
+        s[i][n] = x;
+        mx = fmaxf(mx, x);
       }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = fexp(m[i] - mx[i], T());
-      m[i] = mx[i];
+      mx = row_max(mx);
+      alpha[i] = expf(m[i] - mx);
+      m[i] = mx;
       l[i] *= alpha[i];
-    }
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fexp(s[n][e] - m[e >> 1], T());
-        s[n][e] = p;
-        l[e >> 1] += p;
+      for (int n = 0; n < NS; ++n) {
+        s[i][n] = expf(s[i][n] - mx);
+        l[i] += s[i][n];
       }
+    }
+    __syncthreads();  // every warp is done with K: P takes its place
+    float* sP = sK;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    mma_pn<BN, DV>(acc, s, vb, LV);
-    __syncthreads();
+      for (int n = 0; n < NS; ++n)
+        sP[(wr + la + 4 * i) * LP + lb + 8 * n] = s[i][n];
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < NO; ++n) o[i][n] *= alpha[i];
+    prod_nn<MT, NO, BN, LP, LV>(o, sP + (wr + la) * LP, sV + 4 * lb);
   }
 
+  const int R = a.T * a.n_rep;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ra + 8 * i;
-    const float l_safe = fmaxf(quad_sum(l[i]), 1e-37f);
-    if (r >= R) continue;
-    const int t = r / a.n_rep, hd = kvh * a.n_rep + r % a.n_rep;
-    T* orow = static_cast<T*>(a.o) +
-              ((static_cast<long long>(b) * a.T + t) * a.H + hd) * a.dvd;
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < a.dvd)
-        store2(orow + col, acc[n][2 * i] / l_safe, acc[n][2 * i + 1] / l_safe);
-    }
-    if (tq == 0)
-      a.lse[(static_cast<long long>(b) * a.KV + kvh) * R + r] =
+  for (int i = 0; i < MT; ++i) {
+    const int t = t0 + wr + la + 4 * i;
+    const float l_safe = fmaxf(row_sum(l[i]), 1e-37f);
+    if (t >= a.T) continue;
+    float* orow = static_cast<float*>(a.o) +
+                  ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.dvd;
+    store_row(orow, o[i], lb, a.dvd, l_safe);
+    if (lb == 0)
+      a.lse[(static_cast<long long>(b) * a.KV + kvh) * R +
+            static_cast<long long>(t) * a.n_rep + h % a.n_rep] =
           m[i] + logf(l_safe);
   }
 }
 
-// ----------------------------------------------------------------- delta --
-// delta[b, kvh, r] = sum_c dO[row][c] * O[row][c] in f32, one warp a row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) delta_kernel(const Args a) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= static_cast<long long>(a.B) * a.T * a.H) return;
-  const int hd = static_cast<int>(row % a.H);
-  const int t = static_cast<int>((row / a.H) % a.T);
-  const int b = static_cast<int>(row / (static_cast<long long>(a.H) * a.T));
-  const T* o = static_cast<const T*>(a.out) + row * a.dvd;
-  const T* d = row_of<T>(a.dout, b, t, hd);
-  float sum = 0.f;
-  for (int c = lane; c < a.dvd; c += 32) sum += to_f(d[c]) * to_f(o[c]);
+// --------------------------------------------------------------------- dq --
+// One block a (batch, query head, 128 positions), longest first; warp w
+// takes rows [16 w, 16 w + 16). First delta = rowsum(dO O) of the block's
+// rows, written out for the dk/dv kernel; then each step of BN keys: S =
+// Q K^T and dP = dO V^T (4 x BN / 8 a thread each), dS into shared
+// memory, dQ += dS K (4 x D / 8 a thread).
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args a) {
+  using C = Dq<D, DV>;
+  constexpr int BM = C::BM, BN = C::BN, LQ = C::LQ, LV = C::LV, LS = C::LS;
+  constexpr int MT = BM / 32, NS = BN / 8, NQ = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sO = smem + C::o_off;  // dO
+  float* sS = smem + C::s_off;  // dS
+  float* sL = smem + C::l_off;  // lse
+  float* sD = sL + BM;          // delta
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.n_rep;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int la = lane / 8, lb = lane % 8, wr = warp * (BM / 8);
+  const int R = a.T * a.n_rep;
+  const long long lrow = (static_cast<long long>(b) * a.KV + kvh) * R;
+  const int end = key_tiles(a, t0 * a.n_rep, min(t0 + BM, a.T) * a.n_rep, BN);
+
+  load_rows<D>(sQ, LQ, BM, a.dqk, a.q.p, [&](int i) -> const float* {
+    return t0 + i < a.T ? row_of<float>(a.q, b, t0 + i, h) : nullptr;
+  });
+  load_rows<DV>(sO, LV, BM, a.dvd, a.dout.p, [&](int i) -> const float* {
+    return t0 + i < a.T ? row_of<float>(a.dout, b, t0 + i, h) : nullptr;
+  });
+  auto load_kv = [&](int j) {
+    float* st = smem + C::k_off + (j & 1) * C::stage;
+    const int k0 = j * BN;
+    load_rows<D>(st, LQ, BN, a.dqk, a.k.p, [&](int i) -> const float* {
+      return k0 + i < a.S ? row_of<float>(a.k, b, k0 + i, kvh) : nullptr;
+    });
+    load_rows<DV>(st + BN * LQ, LV, BN, a.dvd, a.v.p,
+                  [&](int i) -> const float* {
+                    return k0 + i < a.S ? row_of<float>(a.v, b, k0 + i, kvh)
+                                        : nullptr;
+                  });
+  };
+  load_kv(0);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+
+  // delta of the block's rows, kThreads / BM threads a row, from dO in
+  // shared memory and O in global memory; lse beside it (p = 0 past T)
+  {
+    constexpr int TPR = kThreads / BM;
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, t = t0 + r;
+    float sum = 0.f;
+    if (t < a.T) {
+      const float* orow =
+          static_cast<const float*>(a.out) +
+          ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.dvd;
+      for (int c = 4 * part; c < a.dvd; c += 4 * TPR) {
+        const float4 x = *reinterpret_cast<const float4*>(orow + c);
+        const float4 y = lds4(sO + r * LV + c);
+        sum = fmaf(y.x, x.x, sum);
+        sum = fmaf(y.y, x.y, sum);
+        sum = fmaf(y.z, x.z, sum);
+        sum = fmaf(y.w, x.w, sum);
+      }
+    }
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
-    const int R = a.T * a.n_rep;
-    a.delta[(static_cast<long long>(b) * a.KV + hd / a.n_rep) * R +
-            static_cast<long long>(t) * a.n_rep + hd % a.n_rep] = sum;
+    for (int o = 1; o < TPR; o *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (part == 0) {
+      const long long i = lrow + static_cast<long long>(t) * a.n_rep +
+                          h % a.n_rep;
+      sD[r] = sum;
+      sL[r] = t < a.T ? a.lse[i] : INFINITY;
+      if (t < a.T) a.delta[i] = sum;
+    }
+  }
+  __syncthreads();
+
+  int pos[MT];
+  float lse[MT], delta[MT], dq[MT][NQ];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = wr + la + 4 * i;
+    pos[i] = a.q_start + t0 + r;
+    lse[i] = sL[r];
+    delta[i] = sD[r];
+  }
+  zero(dq);
+
+  for (int j = 0; j < end; ++j) {
+    if (j > 0) {
+      cp_wait_all();
+      __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    }
+    if (j + 1 < end) {
+      load_kv(j + 1);
+      cp_commit();
+    }
+    const float* sK = smem + C::k_off + (j & 1) * C::stage;
+    const float* sV = sK + BN * LQ;
+    float s[MT][NS], dp[MT][NS];
+    zero(s);
+    zero(dp);
+    prod_nt2<MT, NS, D, DV, LQ, LV>(s, sQ + (wr + la) * LQ, sK + lb * LQ, dp,
+                                    sO + (wr + la) * LV, sV + lb * LV);
+    const bool edge = (a.causal && j * BN + BN - 1 > a.q_start + t0 + wr) ||
+                      (j + 1) * BN > a.S;
+    __syncwarp();  // the warp is done reading the last step's dS
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float x = s[i][n] * a.scale;
+        bool gone = false;
+        if (edge) {
+          const int key = j * BN + lb + 8 * n;
+          gone = key >= a.S;
+          if (a.causal && key > pos[i]) x = kNegInf;
+        }
+        const float p = gone ? 0.f : expf(x - lse[i]);
+        sS[(wr + la + 4 * i) * LS + lb + 8 * n] =
+            p * (dp[i][n] - delta[i]) * a.scale;
+      }
+    __syncwarp();
+    prod_nn<MT, NQ, BN, LS, LQ>(dq, sS + (wr + la) * LS, sK + 4 * lb);
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int t = t0 + wr + la + 4 * i;
+    if (t >= a.T) continue;
+    store_row(static_cast<float*>(a.dq) +
+                  ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.dqk,
+              dq[i], lb, a.dqk);
   }
 }
 
 // ------------------------------------------------------------------ dk/dv --
-// One block a (batch, kv head, 64 keys); each warp's 16 keys' dk and dv in
-// registers, over every grouped query row that sees them, BB rows a step.
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  using C = Shape<T, D, DV>;
-  constexpr int BB = C::BB, LQ = C::LQ, LV = C::LV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kRows * LQ;
-  T* sQ = sV + kRows * LV;   // 2 x BB x LQ
-  T* sO = sQ + 2 * BB * LQ;  // dO: 2 x BB x LV
-  float* sL = reinterpret_cast<float*>(sO + 2 * BB * LV);  // lse: 2 x BB
-  float* sD = sL + 2 * BB;                                 // delta: 2 x BB
+// One block a (batch, kv head, 128 keys), the first keys first (they see
+// the most rows); warp w takes keys [16 w, 16 w + 16). It walks every
+// (query tile, query head of the group) that sees its keys, BM rows a step,
+// with Q, dO, lse and delta double-buffered: S^T = K Q^T and dP^T = V dO^T
+// (4 x BM / 8 a thread each), P^T into shared memory, dV += P^T dO, then
+// dS^T in P^T's place, dK += dS^T Q (4 x DV / 8 and 4 x D / 8 a thread).
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
+  using C = Dkdv<D, DV>;
+  constexpr int BK = C::BK, BM = C::BM, LQ = C::LQ, LV = C::LV, LP = C::LP;
+  constexpr int MT = BK / 32, NS = BM / 8, NK = D / 8, NV = DV / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + C::v_off;
+  float* sP = smem + C::p_off;  // P^T, then dS^T
   const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
+  const int la = lane / 8, lb = lane % 8, wk = warp * (BK / 8);
   const int R = a.T * a.n_rep;
-  const int k0 = blockIdx.x * kRows;
   const long long lrow = (static_cast<long long>(b) * a.KV + kvh) * R;
-
-  zero_smem(smem, C::dkdv_smem);
-  __syncthreads();
-  load_tile<T>(sK, LQ, kRows, a.dqk, a.k.p, [&](int i) -> const T* {
-    return k0 + i < a.S ? row_of<T>(a.k, b, k0 + i, kvh) : nullptr;
-  });
-  load_tile<T>(sV, LV, kRows, a.dvd, a.v.p, [&](int i) -> const T* {
-    return k0 + i < a.S ? row_of<T>(a.v, b, k0 + i, kvh) : nullptr;
-  });
-  auto load_q = [&](int i, int buf) {
-    const int q0 = i * BB;
-    load_tile<T>(sQ + buf * BB * LQ, LQ, BB, a.dqk, a.q.p,
-                 [&](int x) -> const T* {
-                   return q0 + x < R
-                              ? grouped_row<T>(a.q, b, kvh, a.n_rep, q0 + x)
-                              : nullptr;
-                 });
-    load_tile<T>(sO + buf * BB * LV, LV, BB, a.dvd, a.dout.p,
-                 [&](int x) -> const T* {
-                   return q0 + x < R
-                              ? grouped_row<T>(a.dout, b, kvh, a.n_rep, q0 + x)
-                              : nullptr;
-                 });
-    for (int x = threadIdx.x; x < BB; x += kThreads) {
-      const bool ok = q0 + x < R;
-      cp4(sL + buf * BB + x, ok ? a.lse + lrow + q0 + x : a.lse, ok);
-      cp4(sD + buf * BB + x, ok ? a.delta + lrow + q0 + x : a.delta, ok);
-    }
-  };
-  // the query tiles that see these keys: rows r >= (k0 - q_start) * n_rep
-  // when causal and every row sees key 0; a row that sees no key (q_start
-  // < 0) has p = 1 on every key, so then all of them
-  const int n_q = (R + BB - 1) / BB;
+  // the query tiles that see these keys: positions t >= k0 - q_start when
+  // causal and every row sees key 0; a row that sees no key (q_start < 0)
+  // has p = 1 on every key, so then all of them
+  const int n_t = (a.T + BM - 1) / BM;
   int start = 0;
-  if (a.causal && a.q_start >= 0) {
-    const long long first = static_cast<long long>(k0 - a.q_start) * a.n_rep;
-    start = first > 0 ? static_cast<int>(min(first / BB,
-                                             static_cast<long long>(n_q)))
-                      : 0;
-  }
-  load_q(start, 0);
-  cp_commit();
+  if (a.causal && a.q_start >= 0 && k0 - a.q_start > 0)
+    start = min((k0 - a.q_start) / BM, n_t);
+  const int steps = (n_t - start) * a.n_rep;
 
-  // this thread's keys ka and ka + 8; row r sees key k iff r >= (k -
-  // q_start) * n_rep (positions are q_start + r / n_rep, r >= 0)
-  const int ka = k0 + warp * 16 + g;
-  const bool key_ok[2] = {ka < a.S, ka + 8 < a.S};
-  const long long first_row[2] = {
-      static_cast<long long>(ka - a.q_start) * a.n_rep,
-      static_cast<long long>(ka + 8 - a.q_start) * a.n_rep};
-  float dk[D / 8][4], dv[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-
-  for (int i = start; i < n_q; ++i) {
-    const int buf = (i - start) & 1;
-    if (i + 1 < n_q) {
-      load_q(i + 1, buf ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const T* qb = sQ + buf * BB * LQ;
-    const T* ob = sO + buf * BB * LV;
-    const float* lb = sL + buf * BB;
-    const float* db = sD + buf * BB;
-    const int q0 = i * BB;
-    // p^T (16 keys x BB rows) from s^T = K Q^T
-    float st[BB / 8][4];
-#pragma unroll
-    for (int n = 0; n < BB / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-    mma_nt<D, BB>(st, sK + warp * 16 * LQ, LQ, qb, LQ);
-#pragma unroll
-    for (int n = 0; n < BB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * tq + (e & 1);
-        float p = 0.f;
-        if (q0 + c < R && key_ok[e >> 1]) {
-          float x = st[n][e] * a.scale;
-          if (a.causal && q0 + c < first_row[e >> 1]) x = kNegInf;
-          p = fexp(x - lb[c], T());
-        }
-        st[n][e] = p;
-      }
-    mma_pn<BB, DV>(dv, st, ob, LV);  // dV += P^T dO
-    float dpt[BB / 8][4];
-#pragma unroll
-    for (int n = 0; n < BB / 8; ++n)
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    mma_nt<DV, BB>(dpt, sV + warp * 16 * LV, LV, ob, LV);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < BB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * tq + (e & 1);
-        st[n][e] = st[n][e] * (dpt[n][e] - db[c]) * a.scale;  // ds^T
-      }
-    mma_pn<BB, D>(dk, st, qb, LQ);  // dK += dS^T Q
-    __syncthreads();
-  }
-  cp_wait<0>();  // no query tile sees these keys: the first load is idle
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = ka + 8 * i;
-    if (!key_ok[i]) continue;
-    const long long base = (static_cast<long long>(b) * a.S + key) * a.KV + kvh;
-    T* krow = static_cast<T*>(a.dk) + base * a.dqk;
-    T* vrow = static_cast<T*>(a.dv) + base * a.dvd;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < a.dqk) store2(krow + col, dk[n][2 * i], dk[n][2 * i + 1]);
-    }
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < a.dvd) store2(vrow + col, dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
-}
-
-// --------------------------------------------------------------------- dq --
-// One block a (batch, kv head, 64 grouped query rows), walking the key
-// tiles (BB keys a step) as the forward does; dq in registers.
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  using C = Shape<T, D, DV>;
-  constexpr int BB = C::BB, LQ = C::LQ, LV = C::LV;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sO = sQ + kRows * LQ;   // dO
-  T* sK = sO + kRows * LV;   // 2 x BB x LQ
-  T* sV = sK + 2 * BB * LQ;  // 2 x BB x LV
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int R = a.T * a.n_rep;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const long long lrow = (static_cast<long long>(b) * a.KV + kvh) * R;
-
-  zero_smem(smem, C::dq_smem);
-  __syncthreads();
-  load_tile<T>(sQ, LQ, kRows, a.dqk, a.q.p, [&](int i) -> const T* {
-    return r0 + i < R ? grouped_row<T>(a.q, b, kvh, a.n_rep, r0 + i)
-                      : nullptr;
+  load_rows<D>(sK, LQ, BK, a.dqk, a.k.p, [&](int i) -> const float* {
+    return k0 + i < a.S ? row_of<float>(a.k, b, k0 + i, kvh) : nullptr;
   });
-  load_tile<T>(sO, LV, kRows, a.dvd, a.dout.p, [&](int i) -> const T* {
-    return r0 + i < R ? grouped_row<T>(a.dout, b, kvh, a.n_rep, r0 + i)
-                      : nullptr;
+  load_rows<DV>(sV, LV, BK, a.dvd, a.v.p, [&](int i) -> const float* {
+    return k0 + i < a.S ? row_of<float>(a.v, b, k0 + i, kvh) : nullptr;
   });
-  auto load_kv = [&](int j, int buf) {
-    const int k0 = j * BB;
-    load_tile<T>(sK + buf * BB * LQ, LQ, BB, a.dqk, a.k.p,
-                 [&](int i) -> const T* {
-                   return k0 + i < a.S ? row_of<T>(a.k, b, k0 + i, kvh)
-                                       : nullptr;
-                 });
-    load_tile<T>(sV + buf * BB * LV, LV, BB, a.dvd, a.v.p,
-                 [&](int i) -> const T* {
-                   return k0 + i < a.S ? row_of<T>(a.v, b, k0 + i, kvh)
-                                       : nullptr;
-                 });
+  // step u: query head kvh * n_rep + u % n_rep, positions from tq0(u); a
+  // row past T reads zeros everywhere (lse and delta too), so it adds
+  // exactly 0 to dK and dV
+  auto tq0 = [&](int u) { return (start + u / a.n_rep) * BM; };
+  auto load_q = [&](int u) {
+    float* st = smem + C::q_off + (u & 1) * C::stage;
+    const int r = u % a.n_rep, hq = kvh * a.n_rep + r, t = tq0(u);
+    load_rows<D>(st, LQ, BM, a.dqk, a.q.p, [&](int i) -> const float* {
+      return t + i < a.T ? row_of<float>(a.q, b, t + i, hq) : nullptr;
+    });
+    float* so = st + BM * LQ;
+    load_rows<DV>(so, LV, BM, a.dvd, a.dout.p, [&](int i) -> const float* {
+      return t + i < a.T ? row_of<float>(a.dout, b, t + i, hq) : nullptr;
+    });
+    float* sl = so + BM * LV;
+    for (int x = threadIdx.x; x < BM; x += kThreads) {
+      const bool ok = t + x < a.T;
+      const long long i = lrow + static_cast<long long>(t + x) * a.n_rep + r;
+      cp4(sl + x, ok ? a.lse + i : a.lse, ok);
+      cp4(sl + BM + x, ok ? a.delta + i : a.delta, ok);
+    }
   };
-  const int end = key_tiles(a, r0, min(r0 + kRows, R), BB);
-  load_kv(0, 0);
+  if (steps > 0) load_q(0);
   cp_commit();
 
-  const int ra = r0 + warp * 16 + g;
-  const int pos[2] = {a.q_start + ra / a.n_rep, a.q_start + (ra + 8) / a.n_rep};
-  float lse[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = ra + 8 * i < R;
-    lse[i] = ok ? a.lse[lrow + ra + 8 * i] : INFINITY;  // p = 0 off the end
-    delta[i] = ok ? a.delta[lrow + ra + 8 * i] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  for (int j = 0; j < end; ++j) {
-    if (j + 1 < end) {
-      load_kv(j + 1, (j + 1) & 1);
+  // this thread's keys k0 + wk + la + 4 i; key kr is masked for the row at
+  // position p when kr > p. A key past S is computed and never stored.
+  float dk[MT][NK], dv[MT][NV];
+  zero(dk);
+  zero(dv);
+  const int key_hi = k0 + wk + BK / 8 - 1;  // the warp's last key
+  for (int u = 0; u < steps; ++u) {
+    cp_wait_all();
+    __syncthreads();  // step u is in; every warp is done with step u - 1
+    if (u + 1 < steps) {
+      load_q(u + 1);
       cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
     }
-    __syncthreads();
-    const T* kb = sK + (j & 1) * BB * LQ;
-    const T* vb = sV + (j & 1) * BB * LV;
-    float s[BB / 8][4];
+    const float* sQ = smem + C::q_off + (u & 1) * C::stage;
+    const float* sO = sQ + BM * LQ;
+    const float* sL = sO + BM * LV;
+    const float* sD = sL + BM;
+    const int p0 = a.q_start + tq0(u);  // the first row's position
+    float st[MT][NS], dpt[MT][NS];
+    zero(st);
+    zero(dpt);
+    prod_nt2<MT, NS, D, DV, LQ, LV>(st, sK + (wk + la) * LQ, sQ + lb * LQ,
+                                    dpt, sV + (wk + la) * LV, sO + lb * LV);
+    const bool edge = a.causal && key_hi > p0;
 #pragma unroll
-    for (int n = 0; n < BB / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_nt<D, BB>(s, sQ + warp * 16 * LQ, LQ, kb, LQ);
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int n = 0; n < BB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * BB + n * 8 + 2 * tq + (e & 1);
-        float p = 0.f;
-        if (key < a.S) {
-          float x = s[n][e] * a.scale;
-          if (a.causal && key > pos[e >> 1]) x = kNegInf;
-          p = fexp(x - lse[e >> 1], T());
-        }
-        s[n][e] = p;
+      for (int n = 0; n < NS; ++n) {
+        const int c = lb + 8 * n;
+        float x = st[i][n] * a.scale;
+        if (edge && k0 + wk + la + 4 * i > p0 + c) x = kNegInf;
+        const float p = expf(x - sL[c]);
+        st[i][n] = p;
+        dpt[i][n] = p * (dpt[i][n] - sD[c]) * a.scale;  // dS^T
+        sP[(wk + la + 4 * i) * LP + c] = p;
       }
-    float dp[BB / 8][4];
+    __syncwarp();
+    prod_nn<MT, NV, BM, LP, LV>(dv, sP + (wk + la) * LP, sO + 4 * lb);
+    __syncwarp();
 #pragma unroll
-    for (int n = 0; n < BB / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    mma_nt<DV, BB>(dp, sO + warp * 16 * LV, LV, vb, LV);  // dP = dO V^T
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int n = 0; n < BB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * a.scale;  // ds
-    mma_pn<BB, D>(dq, s, kb, LQ);  // dQ += dS K
-    __syncthreads();
+      for (int n = 0; n < NS; ++n)
+        sP[(wk + la + 4 * i) * LP + lb + 8 * n] = dpt[i][n];
+    __syncwarp();
+    prod_nn<MT, NK, BM, LP, LQ>(dk, sP + (wk + la) * LP, sQ + 4 * lb);
   }
+  cp_wait_all();  // no step: the first copy is still in flight
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ra + 8 * i;
-    if (r >= R) continue;
-    const int t = r / a.n_rep, hd = kvh * a.n_rep + r % a.n_rep;
-    T* row = static_cast<T*>(a.dq) +
-             ((static_cast<long long>(b) * a.T + t) * a.H + hd) * a.dqk;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < a.dqk) store2(row + col, dq[n][2 * i], dq[n][2 * i + 1]);
-    }
+  for (int i = 0; i < MT; ++i) {
+    const int key = k0 + wk + la + 4 * i;
+    if (key >= a.S) continue;
+    const long long base = (static_cast<long long>(b) * a.S + key) * a.KV + kvh;
+    store_row(static_cast<float*>(a.dk) + base * a.dqk, dk[i], lb, a.dqk);
+    store_row(static_cast<float*>(a.dv) + base * a.dvd, dv[i], lb, a.dvd);
   }
 }
+
+// ---------------------------------------------------------------- launch --
+template <typename K>
+cudaError_t run(K kernel, const Args& a, dim3 grid, int smem,
+                cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, int DV>
+cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
+  using C = Fwd<D, DV>;
+  return run(fwd_kernel<D, DV>, a, dim3((a.T + C::BM - 1) / C::BM, a.H, a.B),
+             C::smem, st);
+}
+
+// two launches: dq (which writes delta), then dk/dv (which reads it)
+template <int D, int DV>
+cudaError_t launch_bwd(const Args& a, cudaStream_t st) {
+  using Q = Dq<D, DV>;
+  using K = Dkdv<D, DV>;
+  cudaError_t e = run(dq_kernel<D, DV>, a,
+                      dim3((a.T + Q::BM - 1) / Q::BM, a.H, a.B), Q::smem, st);
+  if (e != cudaSuccess) return e;
+  return run(dkdv_kernel<D, DV>, a, dim3((a.S + K::BK - 1) / K::BK, a.KV, a.B),
+             K::smem, st);
+}
+
+}  // namespace cc
+
 
 // ============================================= the wgmma route (bf16) ==
 namespace wg {
@@ -1611,83 +1732,35 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t st) {
              dim3((a.S + K::BK - 1) / K::BK, a.KV, a.B), K::smem, st);
 }
 
-// the (qk, v) instances of this route; kernels/flash_attention.py's
-// WGMMA_BUCKETS names the same (a smaller bucket runs on 64/64, zero-
-// padded by TMA)
-#define FA_WGMMA_BUCKETS(X) X(64, 64) X(128, 128) X(192, 128)
-
-cudaError_t dispatch(const Args& a, int bd, int bdv, bool bwd,
-                     cudaStream_t st) {
-  // the grid is (tiles, heads, batch): a head's tiles run side by side and
-  // share its K and V in L2 (ordering every head's longest tile first
-  // instead reads the whole K and V from memory, 12% slower)
-  if (a.H > 65535) return cudaErrorInvalidValue;
-#define FA_CASE(d, dv)                                              \
-  if (bd == d && bdv == dv)                                         \
-    return bwd ? launch_bwd<d, dv>(a, st) : launch_fwd<d, dv>(a, st);
-  FA_WGMMA_BUCKETS(FA_CASE)
-#undef FA_CASE
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace wg
 
 // ---------------------------------------------------------------- launch --
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
+// the wrapper's route codes (kernels/flash_attention.py, ROUTE_CODES)
+enum Route { kCudaCores = 0, kWgmma = 1 };
 
-template <typename T, int D, int DV>
-cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
-  using C = Shape<T, D, DV>;
-  cudaError_t e = allow_smem(fwd_kernel<T, D, DV>, C::fwd_smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.T * a.n_rep + kRows - 1) / kRows, a.KV, a.B);
-  fwd_kernel<T, D, DV><<<grid, kThreads, C::fwd_smem, st>>>(a);
-  return cudaGetLastError();
-}
+// the (qk, v) instances of both routes; kernels/flash_attention.py's
+// INSTANCES names the same (a smaller bucket runs on 64/64, zero-padded:
+// by TMA on wgmma, by cp.async's zero fill on the CUDA cores)
+#define FA_INSTANCES(X) X(64, 64) X(128, 128) X(192, 128)
 
-template <typename T, int D, int DV>
-cudaError_t launch_bwd(const Args& a, cudaStream_t st) {
-  using C = Shape<T, D, DV>;
-  const long long rows = static_cast<long long>(a.B) * a.T * a.H;
-  delta_kernel<T><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
-                    kThreads, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  e = allow_smem(dkdv_kernel<T, D, DV>, C::dkdv_smem);
-  if (e != cudaSuccess) return e;
-  dkdv_kernel<T, D, DV><<<dim3((a.S + kRows - 1) / kRows, a.KV, a.B),
-                          kThreads, C::dkdv_smem, st>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  e = allow_smem(dq_kernel<T, D, DV>, C::dq_smem);
-  if (e != cudaSuccess) return e;
-  dq_kernel<T, D, DV><<<dim3((a.T * a.n_rep + kRows - 1) / kRows, a.KV, a.B),
-                        kThreads, C::dq_smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-// the (qk, v) buckets of the cuda_cores route (float32);
-// kernels/flash_attention.py's BUCKETS names the same
-#define FA_BUCKETS(X) X(32, 32) X(48, 32) X(64, 64) X(128, 128) X(192, 128)
-
-template <typename T>
-cudaError_t dispatch(const Args& a, int bd, int bdv, bool bwd,
+cudaError_t dispatch(const Args& a, Route route, int bd, int bdv, bool bwd,
                      cudaStream_t st) {
-#define FA_CASE(d, dv)                                              \
-  if (bd == d && bdv == dv)                                         \
-    return bwd ? launch_bwd<T, d, dv>(a, st) : launch_fwd<T, d, dv>(a, st);
-  FA_BUCKETS(FA_CASE)
+  // the grid is (tiles, heads, batch): a head's tiles run side by side and
+  // share its K and V in L2 (ordering every head's longest tile first
+  // instead reads the whole K and V from memory, 12% slower on wgmma)
+  if (a.H > 65535) return cudaErrorInvalidValue;
+#define FA_CASE(d, dv)                                                \
+  if (bd == d && bdv == dv) {                                         \
+    if (route == kWgmma)                                              \
+      return bwd ? wg::launch_bwd<d, dv>(a, st)                       \
+                 : wg::launch_fwd<d, dv>(a, st);                      \
+    return bwd ? cc::launch_bwd<d, dv>(a, st)                         \
+               : cc::launch_fwd<d, dv>(a, st);                        \
+  }
+  FA_INSTANCES(FA_CASE)
 #undef FA_CASE
   return cudaErrorInvalidValue;
 }
-
-// the wrapper's route codes (kernels/flash_attention.py, ROUTE_CODES)
-enum Route { kCudaCores = 0, kWgmma = 1 };
 
 // ints: B, T, S, H, KV, dqk, dv, q_start, causal, bucket qk, bucket v,
 // then the element strides (batch, seq, head) of q, k, v and dout, then
@@ -1725,9 +1798,8 @@ int launch(void* const* ptrs, const long long* n, float scale, int dtype,
   a.n_rep = a.H / a.KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long route = n[23];
-  if (route == kCudaCores && dtype == 0)
-    return dispatch<float>(a, bd, bdv, bwd, st);
-  if (route == kWgmma && dtype == 1) return wg::dispatch(a, bd, bdv, bwd, st);
+  if ((route == kCudaCores && dtype == 0) || (route == kWgmma && dtype == 1))
+    return dispatch(a, static_cast<Route>(route), bd, bdv, bwd, st);
   return cudaErrorInvalidValue;
 }
 

@@ -7,12 +7,14 @@ under ``jit`` on the TPU); on the card the port runs a hand-written kernel
 instead of its eager chunk loop, on the route that ``route`` picks from the
 dtype and the head-dim bucket alone:
 
-- ``wgmma``: bf16; Hopper's warpgroup products fed by TMA, instances at
-  the buckets every LM config reaches (64/64, 128/128, 192/128; a smaller
-  bucket runs zero-padded on 64/64); one forward and two backward launches
-  (dq with delta, then dk/dv) a call;
-- ``cuda_cores``: float32 at every bucket, the first kernel's f32
-  products; one forward and three backward launches (delta, dk/dv, dq).
+- ``wgmma``: bf16; Hopper's warpgroup products fed by TMA;
+- ``cuda_cores``: float32; register-blocked products on the CUDA cores in
+  exact f32 (no TF32), eight warps a block, fed by ``cp.async``.
+
+Both have instances at the buckets every LM config reaches (64/64,
+128/128, 192/128; a smaller bucket runs zero-padded on 64/64), and both
+make one forward and two backward launches a call (dq, which writes
+delta, then dk/dv).
 
 The source's note says what bounds each route and how it is laid out. A
 CUDA tensor takes its route or raises: nothing runs another route when a
@@ -56,13 +58,15 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 _ARGTYPES = [ctypes.POINTER(ctypes.c_void_p),
              ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p]
-# the (qk, v) head-dim buckets the CUDA source instantiates, cheapest first
+# the (qk, v) head-dim buckets the wrappers take, cheapest first; each runs
+# on the cheapest of INSTANCES that holds it
 BUCKETS = ((32, 32), (48, 32), (64, 64), (128, 128), (192, 128))
-# the wgmma route's instances, cheapest first
-WGMMA_BUCKETS = ((64, 64), (128, 128), (192, 128))
+# the kernel instances each route builds, cheapest first (the source's
+# FA_INSTANCES)
+INSTANCES = ((64, 64), (128, 128), (192, 128))
 # the launcher's route codes, and each route's launches a backward call
 ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
-BWD_LAUNCHES = {"cuda_cores": 3, "wgmma": 2}
+BWD_LAUNCHES = {"cuda_cores": 2, "wgmma": 2}
 
 
 def bucket(dqk: int, dv: int) -> tuple[int, int]:
@@ -83,19 +87,19 @@ def bucket(dqk: int, dv: int) -> tuple[int, int]:
 def route(dtype: torch.dtype, dims: tuple[int, int]
           ) -> tuple[str, tuple[int, int]]:
     """The kernel route for inputs of ``dtype`` at the bucket ``dims`` (a
-    ``bucket`` result), and the route's instance that runs it: ``wgmma``
-    (bf16) or ``cuda_cores`` (float32). Raises for a dtype or a bucket no
-    route takes."""
+    ``bucket`` result), ``wgmma`` (bf16) or ``cuda_cores`` (float32), and
+    the instance that runs it: the cheapest of ``INSTANCES`` that holds
+    the bucket (both routes build those). Raises for a dtype or a
+    bucket no route takes."""
     dims = tuple(dims)
     if dims not in BUCKETS:
         raise ValueError(f"{dims} is not a head-dim bucket of the kernel "
                          f"({BUCKETS})")
-    if dtype == torch.float32:
-        return "cuda_cores", dims
-    if dtype == torch.bfloat16:
-        return "wgmma", next(w for w in WGMMA_BUCKETS
+    ways = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
+    if dtype not in ways:
+        raise TypeError(f"no flash attention route takes {dtype}")
+    return ways[dtype], next(w for w in INSTANCES
                              if dims[0] <= w[0] and dims[1] <= w[1])
-    raise TypeError(f"no flash attention route takes {dtype}")
 
 
 def _check(q, k, v, q_chunk: int, kv_chunk: int) -> None:

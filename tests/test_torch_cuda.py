@@ -696,6 +696,21 @@ ATTN_CASES = [
     (2, 160, 200, 6, 2, 128, 128, True, None),
     (1, 100, 200, 4, 2, 64, 64, False, None),
 ]
+# float32 only, against the CUDA-core route's tiles (128 query rows with 64
+# or 48 keys a forward step and 32 or 16 a dq step, 128 keys a dk/dv block
+# with 32 or 16 rows a step): T and S off every tile size, each bucket
+# (32/32 and 48/32 zero-padded onto 64/64), n_rep 1, 2, 6 and 7, rows
+# before key 0, a context-parallel q_start, and MLA's split v; (case, v a
+# split view)
+ATTN_F32_CASES = [
+    ((1, 200, 264, 6, 1, 32, 32, True, None), False),
+    ((2, 130, 130, 7, 1, 48, 32, True, -30), False),
+    ((2, 257, 257, 4, 2, 64, 64, False, None), False),
+    ((1, 300, 1100, 4, 2, 128, 128, True, 700), False),
+    ((1, 129, 190, 12, 2, 128, 128, True, -5), False),
+    ((1, 330, 330, 2, 2, 192, 128, True, None), True),
+    ((2, 100, 300, 4, 4, 192, 128, True, 150), True),
+]
 # float32: the reference's own tolerances (tests/test_torch_attention.py),
 # output and lse atol 2e-5, gradients 5e-4, rtol 0; bf16: relative L2 2e-2
 # (LM_ATTN_REL_L2 in chip_smoke.py; the plain version rounds q.k, dO.v and
@@ -735,7 +750,9 @@ def _attn_vs_plain(gen, b, t, s, h, kv, dqk, dv, causal, q_start, dtype,
                                                      route)
     q, k, v, dout = _attn_inputs(gen, b, t, s, h, kv, dqk, dv, dtype,
                                  split_v)
-    qc, kc = min(256, t), min(256, s)
+    # the plain version's chunks: 256, or the whole length where 256 does
+    # not divide it
+    qc, kc = (256 if n % 256 == 0 else n for n in (t, s))
     args = (s - t if q_start is None else q_start, causal, qc, kc,
             dqk ** -0.5)
     way = route(dtype, bucket(dqk, dv))[0]
@@ -764,6 +781,10 @@ class TestFlashAttentionKernel:
     @pytest.mark.parametrize("case", ATTN_CASES)
     def test_vs_plain(self, gen, case, dtype):
         _attn_vs_plain(gen, *case, dtype)
+
+    @pytest.mark.parametrize("case,split_v", ATTN_F32_CASES)
+    def test_f32_vs_plain_off_the_tiles(self, gen, case, split_v):
+        _attn_vs_plain(gen, *case, torch.float32, split_v=split_v)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_mla_192_128_split_v(self, gen, dtype):
@@ -797,18 +818,23 @@ class TestFlashAttentionKernel:
             out[:, :64], v.mean(1, keepdim=True).expand(1, 64, 2, 32),
             rtol=0, atol=2e-5)
 
-    def test_function_counts_and_raises(self, gen):
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_function_counts_and_raises(self, gen, dtype):
+        """One forward and two backward launches a call on either route
+        (float32 on the CUDA cores, bf16 on wgmma)."""
         from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                          flash_attention_fwd)
         from repro_torch.models.attention import flash_attention
-        q, k, v, dout = _attn_inputs(gen, 1, 256, 256, 4, 2, 64, 64,
-                                     torch.bfloat16)
+        way = "cuda_cores" if dtype == torch.float32 else "wgmma"
+        q, k, v, dout = _attn_inputs(gen, 1, 256, 256, 4, 2, 64, 64, dtype)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        r0 = flash_attention_bwd.routes[way]
         out = flash_attention(q, k, v, q_chunk=128, kv_chunk=128)
         torch.autograd.grad(out, (q, k, v), dout)
         assert (flash_attention_fwd.launches,
                 flash_attention_bwd.launches) == (f0 + 1, b0 + 2)
+        assert flash_attention_bwd.routes[way] == r0 + 2
         for dqk, dv in ((256, 64), (64, 256), (12, 12)):
             a, b_, c, _ = _attn_inputs(gen, 1, 64, 64, 2, 2, dqk, dv,
                                        torch.float32)
@@ -818,8 +844,9 @@ class TestFlashAttentionKernel:
             flash_attention_fwd(q.detach().transpose(2, 3).contiguous()
                                 .transpose(2, 3), k.detach(), v.detach(),
                                 0, True, 128, 128, 0.1)
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
         with pytest.raises(TypeError):            # mixed dtypes
-            flash_attention_fwd(q.detach().float(), k.detach(), v.detach(),
+            flash_attention_fwd(q.detach().to(other), k.detach(), v.detach(),
                                 0, True, 128, 128, 0.1)
         assert (flash_attention_fwd.launches,
                 flash_attention_bwd.launches) == (f0 + 1, b0 + 2)

@@ -10,7 +10,8 @@ marked ``cuda``). Here:
   operations, unchanged by the kernel);
 - the contract the wrappers hold on every device, the head-dim buckets
   they pick for the kernel and the route each (dtype, bucket) takes on the
-  card (bf16 on wgmma, float32 on the CUDA cores), counted per route;
+  card (bf16 on wgmma, float32 on the CUDA cores, both on the same
+  instances, two backward launches a call), counted per route;
 - the plain version against ``repro.models.attention.flash_attention`` for
   rows that see no key (``q_start < 0``) and for a ``v`` that is a split
   view: float32, the reference's own tolerances (output ``atol=2e-5``,
@@ -123,15 +124,14 @@ class TestWrappersOffTheCard:
     @pytest.mark.parametrize("dims", fa.BUCKETS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_route_of_every_dtype_and_bucket(self, dtype, dims):
-        """float32 runs its own bucket on the CUDA cores; bf16 runs on
-        wgmma, a bucket under 64/64 on the 64/64 instance (zero-padded)."""
+        """float32 runs on the CUDA cores and bf16 on wgmma, both on the
+        same instance: the bucket's own, or 64/64 for a bucket under it
+        (zero-padded); each route makes two backward launches a call."""
         way, inst = fa.route(dtype, dims)
-        if dtype == torch.float32:
-            assert (way, inst) == ("cuda_cores", dims)
-        else:
-            assert way == "wgmma" and inst in fa.WGMMA_BUCKETS
-            assert inst == (dims if dims in fa.WGMMA_BUCKETS else (64, 64))
-        assert fa.BWD_LAUNCHES[way] == (2 if way == "wgmma" else 3)
+        assert way == {torch.float32: "cuda_cores",
+                       torch.bfloat16: "wgmma"}[dtype]
+        assert inst == (dims if dims in fa.INSTANCES else (64, 64))
+        assert fa.BWD_LAUNCHES[way] == 2
         assert set(fa.ROUTE_CODES) == set(fa.flash_attention_fwd.routes) \
             == set(fa.flash_attention_bwd.routes) == set(fa.BWD_LAUNCHES)
 

@@ -1,6 +1,7 @@
-"""Time the bf16 flash attention kernel of one or more checkouts on the card.
+"""Time the flash attention kernel of one or more checkouts on the card.
 
     python tools/flash_bench.py ROOT [ROOT ...] [--reps N]
+        [--dtype {bfloat16,float32}]
 
 Each ROOT (a checkout, or a ``git archive`` of one) runs in a process of
 its own, in the order given, so that each imports its own ``repro_torch``
@@ -10,7 +11,10 @@ parent`` to compare them on one card. For each it times
 chip_smoke.py's attention shapes, by CUDA events over back-to-back calls
 after a warm call, beside ``F.scaled_dot_product_attention`` (a yardstick
 the port never calls) and the bound (2 FLOP a multiply-add over the causal
-pairs at 989 TFLOP/s), and the nvcc seconds of its flash attention source.
+pairs at 989 TFLOP/s in bf16, 67 in float32 off the tensor cores), and the
+nvcc seconds of its flash attention source. ``--dtype`` picks the inputs'
+type and so the route: bf16 (the default) runs on wgmma, float32 on the
+CUDA cores.
 It prints one JSON line a run, then the card's name and power limit as
 ``nvidia-smi`` gives them. Needs a CUDA card.
 """
@@ -24,15 +28,17 @@ import sys
 import time
 from pathlib import Path
 
-# chip_smoke.py's ATTN_SHAPE, MLA_SHAPE and CP_SHAPE: qwen3-1.7b's prefill,
-# deepseek-v3's MLA (v a split view) and a context-parallel block of
-# qwen2-0.5b; causal, q_start = S - T unless given
+# chip_smoke.py's ATTN_SHAPE, MLA_SHAPE, CP_SHAPE and LM100M_ATTN_SHAPE:
+# qwen3-1.7b's prefill, deepseek-v3's MLA (v a split view), a
+# context-parallel block of qwen2-0.5b and lm-100m's training; causal,
+# q_start = S - T unless given
 SHAPES = {
     "attn": dict(b=8, t=4096, h=16, kv=8, d=128),
     "mla": dict(b=2, t=4096, h=128, kv=128, d=192, dv=128, split_v=True),
     "cp": dict(b=8, t=1024, s=4096, h=14, kv=2, d=64, q_start=2048),
+    "lm100m": dict(b=64, t=256, h=8, kv=4, d=64),
 }
-BF16_FLOPS = 989e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def _flops(shape: dict) -> tuple[float, float]:
@@ -58,8 +64,9 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_one(root: Path, reps: int) -> dict:
-    """Time ``root``'s kernel at every shape (this process only)."""
+def run_one(root: Path, reps: int, dtype_name: str) -> dict:
+    """Time ``root``'s kernel at every shape in ``dtype_name`` (this
+    process only)."""
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
@@ -69,8 +76,10 @@ def run_one(root: Path, reps: int) -> dict:
         raise SystemExit("flash_bench: no CUDA card available")
     t0 = time.perf_counter()
     _build.build_all(("flash_attention",))
+    dtype = getattr(torch, dtype_name)
     out = {"root": str(root), "build_s": time.perf_counter() - t0,
-           "device": torch.cuda.get_device_name(0), "shapes": {}}
+           "device": torch.cuda.get_device_name(0), "dtype": dtype_name,
+           "shapes": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, shape in SHAPES.items():
         b, t, h, kv, d = (shape[x] for x in ("b", "t", "h", "kv", "d"))
@@ -78,7 +87,7 @@ def run_one(root: Path, reps: int) -> dict:
 
         def rnd(*size):
             return torch.randn(size, generator=gen, device="cuda",
-                               dtype=torch.bfloat16)
+                               dtype=dtype)
 
         q, k = rnd(b, t, h, d), rnd(b, s, kv, d)
         v = (rnd(b, s, kv, 128 + dv).split([128, dv], -1)[1]
@@ -94,8 +103,8 @@ def run_one(root: Path, reps: int) -> dict:
                 q, k, v, o, lse, dout, *args), max(1, reps // 2)),
         }
         f_fwd, f_bwd = _flops(shape)
-        rec["bound_fwd_ms"] = 1e3 * f_fwd / BF16_FLOPS
-        rec["bound_bwd_ms"] = 1e3 * f_bwd / BF16_FLOPS
+        rec["bound_fwd_ms"] = 1e3 * f_fwd / PEAK_FLOPS[dtype_name]
+        rec["bound_bwd_ms"] = 1e3 * f_bwd / PEAK_FLOPS[dtype_name]
         if "q_start" not in shape:     # SDPA's causal mask is q_start 0
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
@@ -121,15 +130,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="+", type=Path)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--dtype", choices=tuple(PEAK_FLOPS), default="bfloat16")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(run_one(args.roots[0].resolve(), args.reps)))
+        print(json.dumps(run_one(args.roots[0].resolve(), args.reps,
+                                 args.dtype)))
         return 0
     for root in args.roots:
         res = subprocess.run(
             [sys.executable, __file__, "--one", "--reps", str(args.reps),
-             str(root)], capture_output=True, text=True, check=False)
+             "--dtype", args.dtype, str(root)], capture_output=True,
+            text=True, check=False)
         lines = res.stdout.strip().splitlines()
         if res.returncode or not lines:
             print(res.stdout + res.stderr, file=sys.stderr)
