@@ -54,6 +54,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.distributed.mesh import out_boundary, psum
 from repro_torch.distributed.shardings import P
@@ -241,21 +242,30 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
     becomes a reduce-scatter and the dense compute uses every rank instead
     of running model-ways replicated; ``table_2d`` (with ``hybrid``) takes
     the 2D row-sharded tables.
+
+    Under a torch profiler the call is the span ``obs.FORWARD``, holding
+    ``obs.BOT_MLP``, ``obs.BAGS``, ``obs.INTERACT`` (the bags' cast to the
+    interaction's dtype included) and ``obs.TOP_MLP`` (``repro_torch.obs``).
     """
-    hybrid = hybrid and mesh is not None and axes is not None
-    dense_in = batch["dense"]
-    if hybrid:
-        dense_in = _constrain_hybrid(dense_in, mesh, axes)
-    x = mlp(params["bot"], dense_in)
-    if mesh is None:
-        all_bags = bags(params, batch["indices"], plain)
-    else:
-        all_bags = torch.stack(
-            [_bag(params, batch["indices"][:, t, :], t, mesh, axes, hybrid,
-                  table_2d=hybrid and table_2d)
-             for t in range(cfg.n_tables)], dim=1)
-    feat = interact(x, all_bags, cfg.interaction, plain)
-    return mlp(params["top"], feat)[:, 0]          # logits (B,)
+    with obs.span(obs.FORWARD):
+        hybrid = hybrid and mesh is not None and axes is not None
+        dense_in = batch["dense"]
+        if hybrid:
+            dense_in = _constrain_hybrid(dense_in, mesh, axes)
+        with obs.span(obs.BOT_MLP):
+            x = mlp(params["bot"], dense_in)
+        with obs.span(obs.BAGS):
+            if mesh is None:
+                all_bags = bags(params, batch["indices"], plain)
+            else:
+                all_bags = torch.stack(
+                    [_bag(params, batch["indices"][:, t, :], t, mesh, axes,
+                          hybrid, table_2d=hybrid and table_2d)
+                     for t in range(cfg.n_tables)], dim=1)
+        with obs.span(obs.INTERACT):
+            feat = interact(x, all_bags, cfg.interaction, plain)
+        with obs.span(obs.TOP_MLP):
+            return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
 
 def loss(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
