@@ -22,11 +22,14 @@ Phases, each of which fails the run when it fails:
    NAND policy lane on the host (simulated flashsim time, printed as the
    reference serve's report), then the card scores the recflash lane's
    batches (26 tables x 1M rows x 64 f32 on the card, 80 lookups, batch
-   64); the scored batches must be the lane's, the kernels' launch counts
-   over that run one grouped SLS and one fused interaction per lane batch
-   and no per-table or full-Gram launch, the logits finite, one batch
-   equal to the same forward through the plain versions, and each lane's
-   simulated p99 the reference serve's for the same flags;
+   64); the scored batches must be the lane's; the forward's first batch
+   runs eagerly (one grouped SLS and one fused interaction counted by
+   their wrappers, no per-table or full-Gram launch) and is captured as a
+   CUDA graph, which every later batch replays (``dlrm.forward``'s
+   counters); a device trace of the run must hold one SLS and one
+   interaction kernel a lane batch; the logits finite, each batch equal to
+   the same forward through the plain versions, and each lane's simulated
+   p99 the reference serve's for the same flags;
 4. retrieval: ``dlrm.retrieval_score`` on the served model, 1 user x
    1,000,000 candidates (the retrieval_cand shape): one grouped SLS, one
    per-table SLS and one fused interaction launch, the scores equal to the
@@ -509,13 +512,36 @@ def check_grouped(gen: torch.Generator) -> float:
     return first
 
 
+def kernel_runs(events) -> dict[str, int]:
+    """How often the card ran the SLS and interaction kernels in a trace's
+    events: the runs of a CUDA graph's kernels too, which no wrapper
+    counts."""
+    from torch.autograd import DeviceType
+    names = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    return {k: sum(k in n for n in names)
+            for k in ("sls_kernel", "interaction_kernel")}
+
+
 def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
-    """The main path, with the kernels' launch counts over exactly it."""
+    """The main path, with the kernels' launch counts over exactly it: the
+    wrappers' (the eager calls: a graph bucket's first batch), the graph
+    route's captures and replays (``dlrm.forward``), and the kernels' runs
+    on the card from a device trace of the same run, one SLS and one
+    interaction a batch."""
+    from torch.profiler import ProfilerActivity, profile
     reset_counts()
-    res = serve_mod.serve(device="cuda", **SERVE)
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    graphs0 = (dlrm.forward.graph_captures, dlrm.forward.graph_replays)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = serve_mod.serve(device="cuda", **SERVE)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    captures = dlrm.forward.graph_captures - graphs0[0]
+    replays = dlrm.forward.graph_replays - graphs0[1]
+    ran = kernel_runs(prof.profiler.kineto_results.events())
     cfg, lane = res.cfg, res.traces["recflash"].batches
     n_b = len(lane)
+    buckets = len({dlrm.graph_bucket(inp["dense"].shape[0])
+                   for inp in res.inputs})
     print(f"[serve] host set-up {res.t_setup:.2f} s (Deployment: offline "
           f"sweep and {len(res.traces)} policy lanes over {cfg.n_tables} "
           f"tables x {cfg.n_rows[0]} rows; the stream), replay of every lane "
@@ -530,9 +556,11 @@ def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
           f"{res.n_scored} requests in the recflash lane's {n_b} batches "
           f"(sizes {[b.size for b in lane]})")
     print(f"scored {res.n_scored} requests in {res.t_compute:.2f}s compute "
-          f"({1e3 * res.t_compute / n_b:.2f} ms/batch forward, first batch "
-          f"included)")
-    print(f"[serve] launches: {launches}; peak device memory "
+          f"({1e3 * res.t_compute / n_b:.2f} ms/batch forward under the "
+          f"profiler, first batch included)")
+    print(f"[serve] launches: {launches}; graph captures {captures}, "
+          f"replays {replays}; kernels run on the card (device trace) "
+          f"{ran}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if len(res.inputs) != n_b:
         raise AssertionError(f"scored {len(res.inputs)} batches, the lane "
@@ -543,17 +571,24 @@ def phase_serve() -> tuple[serve_mod.ServeResult, dict[str, int]]:
         if not np.array_equal(inp["indices"][:b.size].cpu().numpy(), rows):
             raise AssertionError("a scored batch is not the recflash "
                                  "lane's batch")
-    want = counts(recflash_sls_grouped=n_b, dot_interaction_fused=n_b)
+    want = counts(recflash_sls_grouped=buckets, dot_interaction_fused=buckets)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    if (captures, replays) != (buckets, n_b - buckets):
+        raise AssertionError(f"{captures} graph captures and {replays} "
+                             f"replays over {n_b} batches in {buckets} "
+                             f"buckets")
+    if ran != {"sls_kernel": n_b, "interaction_kernel": n_b}:
+        raise AssertionError(f"the card ran {ran} over {n_b} batches")
     if res.n_scored != SERVE["requests"]:
         raise AssertionError(f"scored {res.n_scored} of {SERVE['requests']}")
-    for lg, b in zip(res.logits, lane, strict=True):
+    for i, (lg, inp, b) in enumerate(zip(res.logits, res.inputs, lane,
+                                         strict=True)):
         if lg.shape != (b.size,) or not torch.isfinite(lg).all():
             raise AssertionError("logits are not finite or misshapen")
-    plain = dlrm.forward(res.params, res.inputs[0], cfg, plain=True)
-    compare("serve batch 0 logits vs the plain-routed forward",
-            res.logits[0], plain[:lane[0].size], LOGIT_TOL)
+        plain = dlrm.forward(res.params, inp, cfg, plain=True)
+        compare(f"serve batch {i} logits vs the plain-routed forward", lg,
+                plain[:b.size], LOGIT_TOL)
     return res, launches
 
 
@@ -1474,19 +1509,27 @@ def phase_bf16(res: serve_mod.ServeResult, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    graphs0 = (dlrm.forward.graph_captures, dlrm.forward.graph_replays)
     with torch.inference_mode():
         logits = [dlrm.forward(p, inp, cfg) for inp in inputs]
         scores = dlrm.retrieval_score(p, rbatch, cfg)
     state1 = step_fn(state0, tb)
     torch.cuda.synchronize()
     launches = read_counts()
+    graphs = (dlrm.forward.graph_captures - graphs0[0],
+              dlrm.forward.graph_replays - graphs0[1])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = counts(recflash_sls_grouped=n_b + 2,
-                  dot_interaction_fused=n_b + 2, recflash_sls=1)
+    # the serve batches replay a CUDA graph but a bucket's first (eager)
+    buckets = len({dlrm.graph_bucket(inp["dense"].shape[0])
+                   for inp in inputs})
+    want = counts(recflash_sls_grouped=buckets + 2,
+                  dot_interaction_fused=buckets + 2, recflash_sls=1)
     print(f"[bf16] launches over the path ({n_b} serve batches, 1 retrieval, "
-          f"1 training step): {launches}; peak device memory {peak:.2f} GiB")
-    if launches != want:
-        raise AssertionError(f"bf16 launch counts {launches} != {want}")
+          f"1 training step): {launches}; serve graph captures and replays "
+          f"{graphs}; peak device memory {peak:.2f} GiB")
+    if launches != want or graphs != (buckets, n_b - buckets):
+        raise AssertionError(f"bf16 launch counts {launches} != {want}, or "
+                             f"graph captures and replays {graphs}")
     if not all(lg.dtype == bf and torch.isfinite(lg.float()).all()
                for lg in logits + [scores]):
         raise AssertionError("bf16 logits are not bf16 and finite")

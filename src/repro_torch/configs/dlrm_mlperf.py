@@ -105,11 +105,12 @@ def _attach(p, batch, mesh):
     """The params with the batch's ``rank_of``: without a mesh through
     ``dlrm.add_remap``, which builds the grouped SLS's table descriptors
     (its hot size 1, as the reference's ``_bag`` reads the stored table
-    whole)."""
+    whole). The dict is new on every call, so it holds no CUDA graphs and
+    the forward runs it on its eager route."""
     if "rank_of" not in batch:
         return p
     if mesh is None:
-        return dlrm.add_remap(p, batch["rank_of"])
+        return dlrm.add_remap(p, batch["rank_of"], graphs=False)
     return {**p, "rank_of": batch["rank_of"]}
 
 

@@ -15,6 +15,10 @@ The source's note says what bounds the kernel and how it is laid out. On a
 CPU tensor a wrapper runs the plain version (``kernels.ref``), and on a
 meta tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA
 tensor it launches the kernel on the current stream or raises.
+Each entry's ``launches`` counts the launches it runs at once; one made
+while the stream captures a CUDA graph is not counted, since its kernel
+runs only when the graph replays (``models.dlrm``'s graph route), and no
+wrapper sees a replay.
 
 ``DotInteractionFused`` gives the fused entry a gradient. The TPU kernel
 has none (the reference differentiates its plain einsum), so the backward
@@ -79,7 +83,8 @@ def dot_interaction(z: torch.Tensor, block_b: int = 64) -> torch.Tensor:
     out = torch.empty((b, t, t), dtype=torch.float32, device=z.device)
     _launch(z, t * d, z.data_ptr() + d * z.element_size(), t * d, out, t, d,
             fused=False)
-    dot_interaction.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        dot_interaction.launches += 1
     return out
 
 
@@ -116,7 +121,8 @@ def dot_interaction_fused(bottom_out: torch.Tensor,
                       device=bottom_out.device)
     _launch(bottom_out, bottom_out.stride(0), bags.data_ptr(), bags.stride(0),
             out, t, d, fused=True)
-    dot_interaction_fused.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        dot_interaction_fused.launches += 1
     return out
 
 
@@ -160,5 +166,5 @@ class DotInteractionFused(torch.autograd.Function):
         return dot_interaction_fused_backward(grad, *ctx.saved_tensors)
 
 
-dot_interaction.launches = 0         # kernel launches since the last reset
-dot_interaction_fused.launches = 0   # kernel launches since the last reset
+dot_interaction.launches = 0         # launches run since the last reset
+dot_interaction_fused.launches = 0   # launches run since the last reset

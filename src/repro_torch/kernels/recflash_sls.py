@@ -17,6 +17,10 @@ tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
 tensor a wrapper runs the plain version (``kernels.ref``), and on a meta
 tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA tensor
 it launches the kernel on the current stream or raises.
+Each entry's ``launches`` counts the launches it runs at once; one made
+while the stream captures a CUDA graph is not counted, since its kernel
+runs only when the graph replays (``models.dlrm``'s graph route), and no
+wrapper sees a replay.
 
 Both entries add each bag in float32 in lookup order and return it in the
 tables' dtype (float32 or bfloat16). An id out of range is clamped into
@@ -44,6 +48,12 @@ from repro_torch.kernels.ref import recflash_sls_grouped_ref, recflash_sls_ref
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+# what a wrapper raises for descriptors built from other tensors
+STALE_DESCRIPTORS = ("the descriptors no longer match the tables they name "
+                     "(a table, hot size or rank_of was replaced); describe "
+                     "the tables again (dlrm.add_remap)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +186,8 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     _launch(0, (hot.data_ptr(), cold.data_ptr(), h, h + cold.shape[0]),
             indices[:, None, :], out, d, hot.dtype,
             _vec_ok(d, hot.dtype, (hot.data_ptr(), cold.data_ptr())))
-    recflash_sls.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        recflash_sls.launches += 1
     return out
 
 
@@ -204,9 +215,7 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     if desc is None:
         desc = describe(tables, hot_sizes, rank_of)
     elif _key(tables, hot_sizes, rank_of) != desc.key:
-        raise ValueError("the descriptors no longer match the tables they "
-                         "name (a table, hot size or rank_of was replaced); "
-                         "describe the tables again (dlrm.add_remap)")
+        raise ValueError(STALE_DESCRIPTORS)
     dev = tables[0].device
     if (indices.dim() != 3 or indices.dtype != torch.int32
             or indices.shape[1] != len(tables)):
@@ -223,7 +232,8 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     out = torch.empty((b, n_t, d), dtype=dtype, device=dev)
     _launch(desc.tensor.data_ptr(), (0, 0, 0, 0), indices, out, d, dtype,
             desc.vec)
-    recflash_sls_grouped.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        recflash_sls_grouped.launches += 1
     return out
 
 
@@ -286,5 +296,5 @@ class RecFlashSLSGrouped(torch.autograd.Function):
                   for g, (_, dt) in zip(grads, ctx.meta, strict=True)])
 
 
-recflash_sls.launches = 0           # kernel launches since the last reset
-recflash_sls_grouped.launches = 0   # kernel launches since the last reset
+recflash_sls.launches = 0           # launches run since the last reset
+recflash_sls_grouped.launches = 0   # launches run since the last reset

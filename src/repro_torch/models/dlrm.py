@@ -45,6 +45,37 @@ bags are the row-sharded masked-psum SLS of ``repro_torch.embedding.
 sharded`` (plain PyTorch gathers and NCCL or gloo collectives), one table
 at a time as the reference does; the interaction is still one fused
 launch on the rank's rows.
+
+A small inference batch on the card replays a CUDA graph of the forward
+instead of dispatching its ~19 launches from Python (``eager_reason``
+says which calls; the others run the eager forward unchanged). The graph
+holds the same launches: the grouped SLS, the fused interaction and the
+cuBLAS MLPs with their bias adds and ReLUs; only the host's work per
+launch goes. A call's rows are rounded up to a power of two
+(``graph_bucket``), copied into that bucket's static inputs (zeroed when
+made; rows past the batch keep an earlier call's in-range ids and
+features, and every op of the forward works per row, so they never reach
+a real row), and the logits come back as a clone of the graph's output,
+which the next replay overwrites. A bucket's first call runs eagerly,
+returns that result, then captures the graph; a capture that fails
+raises. The graphs live in the ``GraphCache`` that ``add_remap`` puts in
+the dict it returns, so they die with the parameters; they are bound to
+the descriptors, the MLP tensors' pointers, shapes and dtypes and the
+TF32 setting they were captured with, and a call that finds any of these
+replaced drops them and captures anew. The descriptors' own key (the
+tables' and ``rank_of``'s pointers and shapes, the hot sizes) is checked
+once, when the graphs are bound; later calls check the tables' and
+``rank_of``'s data pointers and the hot sizes against it, so a table, hot
+size or ``rank_of`` replaced without ``add_remap``, or a tensor whose
+storage is swapped under it (``.data =``, ``set_``), raises as the SLS
+wrapper does. Writes into the tensors in place are read by the next
+replay, as by the eager route. The cache is not safe to share across
+threads or streams that run at once. ``forward.graph_captures`` and
+``forward.graph_replays`` count the route. The kernels' ``launches``
+counters count only the launches their wrappers make to run at once (the
+eager calls): a launch recorded into a graph is not counted, and a replay
+runs the graph's kernels without their wrappers, so a trace of the card
+is what shows them.
 """
 
 from __future__ import annotations
@@ -63,7 +94,7 @@ from repro_torch.embedding.sharded import (sharded_embedding_bag,
                                            sharded_embedding_bag_2d,
                                            sharded_remapped_bag)
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.recflash_sls import describe
+from repro_torch.kernels.recflash_sls import STALE_DESCRIPTORS, _key, describe
 from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
                                        mlp_init, uniform_init)
 
@@ -227,6 +258,138 @@ def _constrain_hybrid(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x.chunk(n)[mesh.axis_index("model")]
 
 
+# The graph route's largest batch (module docstring; ``eager_reason`` says
+# why).
+GRAPH_MAX_ROWS = 1024
+GRAPHS = "graphs"          # the params' key of their ``GraphCache``
+
+
+class GraphCache:
+    """The CUDA graphs of one parameter set's inference forward, one a
+    bucket and input layout, in one memory pool (module docstring).
+    ``add_remap`` puts a new one in each dict it returns. Not safe to share
+    across threads."""
+
+    def __init__(self):
+        self.desc = None       # the SLS descriptors every graph reads
+        self.bound = None      # the MLP tensors and TF32 setting they read
+        self.tables = None     # the data pointers and hot sizes they name
+        self.graphs: dict = {}
+        self.pool = None
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    dense: torch.Tensor        # the static inputs, ``bucket`` rows each
+    indices: torch.Tensor
+    out: torch.Tensor          # the static logits
+
+
+def graph_bucket(rows: int) -> int:
+    """The static batch a call of ``rows`` rows replays: the next power of
+    two, from 1 to ``GRAPH_MAX_ROWS``."""
+    if not 1 <= rows <= GRAPH_MAX_ROWS:
+        raise ValueError(f"{rows} rows: the graph route takes 1 to "
+                         f"{GRAPH_MAX_ROWS}")
+    return 1 << (rows - 1).bit_length()
+
+
+def _mlp_tensors(params) -> list:
+    return [t for layer in params["bot"] + params["top"]
+            for t in layer.values()]
+
+
+def eager_reason(params, batch, mesh=None, plain: bool = False
+                 ) -> str | None:
+    """Why ``forward`` runs this call on its eager route, or None where it
+    replays a CUDA graph: ``"mesh"``, ``"plain"``, ``"descriptors"``
+    (params without the grouped SLS descriptors and ``GraphCache`` of
+    ``add_remap``), ``"rows"`` (none, or more than ``GRAPH_MAX_ROWS``),
+    ``"gradient"`` (grad mode on and a parameter or the dense features
+    require one) or ``"device"`` (not CUDA tensors).
+
+    The limit of ``GRAPH_MAX_ROWS`` rows: below it the host's eager
+    dispatch (~0.5 ms on an H100's host) outlasts the card's work, which a
+    replay leaves as it is; rmc2's forward (32 tables, 120 lookups) takes
+    the card as long as its dispatch at about 1,024 rows, and a graph gains
+    nothing at 2,048. Above it the copies into the static inputs only add:
+    rmc2's ids are 63 MB at 4,096 rows, ~4% of a step there."""
+    if mesh is not None:
+        return "mesh"
+    if plain:
+        return "plain"
+    if params.get(GRAPHS) is None or params.get("sls_desc") is None:
+        return "descriptors"
+    dense, indices = batch["dense"], batch["indices"]
+    if not 1 <= dense.shape[0] <= GRAPH_MAX_ROWS:
+        return "rows"
+    if torch.is_grad_enabled() and (
+            dense.requires_grad
+            or any(t.requires_grad for t in params["tables"])
+            or any(t.requires_grad for t in _mlp_tensors(params))):
+        return "gradient"
+    if not (dense.is_cuda and indices.is_cuda):
+        return "device"
+    return None
+
+
+def _graphed(params, batch, cfg: DLRMConfig) -> torch.Tensor:
+    """``forward``'s graph route: replay the bucket's graph, or run the
+    call eagerly and capture it."""
+    cache, desc = params[GRAPHS], params["sls_desc"]
+    mlps = _mlp_tensors(params)
+    bound = ([(t.data_ptr(), t.shape, t.dtype) for t in mlps],
+             torch.backends.cuda.matmul.allow_tf32)
+    tables, rank_of = params["tables"], params["rank_of"]
+    named = (list(map(torch.Tensor.data_ptr, tables)),
+             list(map(torch.Tensor.data_ptr, rank_of)),
+             list(params["hot_sizes"]))
+    if cache.desc is not desc or cache.bound != bound:
+        if _key(tables, params["hot_sizes"], rank_of) != desc.key:
+            raise ValueError(STALE_DESCRIPTORS)
+        cache.desc, cache.bound, cache.tables = desc, bound, named
+        cache.graphs, cache.pool = {}, None
+    elif named != cache.tables:
+        raise ValueError(STALE_DESCRIPTORS)
+    dense, indices = batch["dense"], batch["indices"]
+    rows = dense.shape[0]
+    key = (graph_bucket(rows), dense.dtype, dense.shape[1:], indices.dtype,
+           indices.shape[1:], cfg.interaction)
+    g = cache.graphs.get(key)
+    if g is None:
+        out = _eager(params, batch, cfg, None, None, False, False, False)
+        cache.graphs[key] = _capture(cache, params, cfg, key[0], dense,
+                                     indices)
+        forward.graph_captures += 1
+        return out
+    g.dense[:rows].copy_(dense)
+    g.indices[:rows].copy_(indices)
+    g.graph.replay()
+    forward.graph_replays += 1
+    return g.out[:rows].clone()
+
+
+def _capture(cache: GraphCache, params, cfg: DLRMConfig, bucket: int,
+             dense: torch.Tensor, indices: torch.Tensor) -> _Graph:
+    """Capture the eager forward over zeroed static inputs of ``bucket``
+    rows into the cache's pool."""
+    dev = dense.device
+    with torch.inference_mode(False):      # writable in any grad mode
+        s_dense = torch.zeros((bucket, *dense.shape[1:]), dtype=dense.dtype,
+                              device=dev)
+        s_indices = torch.zeros((bucket, *indices.shape[1:]),
+                                dtype=indices.dtype, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev):
+        if cache.pool is None:
+            cache.pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=cache.pool):
+            out = _eager(params, {"dense": s_dense, "indices": s_indices},
+                         cfg, None, None, False, False, False)
+    return _Graph(graph, s_dense, s_indices, out)
+
+
 def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
             hybrid: bool = False, table_2d: bool = False,
             plain: bool = False) -> torch.Tensor:
@@ -243,29 +406,48 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
     of running model-ways replicated; ``table_2d`` (with ``hybrid``) takes
     the 2D row-sharded tables.
 
-    Under a torch profiler the call is the span ``obs.FORWARD``, holding
-    ``obs.BOT_MLP``, ``obs.BAGS``, ``obs.INTERACT`` (the bags' cast to the
-    interaction's dtype included) and ``obs.TOP_MLP`` (``repro_torch.obs``).
+    A call that ``eager_reason`` passes (no mesh, not ``plain``, no
+    gradient wanted, at most ``GRAPH_MAX_ROWS`` rows of CUDA tensors, on
+    params from ``add_remap``) replays its bucket's CUDA graph: the rows
+    copied into the bucket's static inputs, the graph replayed, its first
+    rows' logits returned as a clone. The graphs are keyed by the bucket,
+    the inputs' dtypes and widths, and bound to the tensors they read; a
+    bucket's first call runs eagerly and then captures. The cache is not
+    thread-safe. The module docstring has the details and the counters.
+
+    Under a torch profiler the call is the span ``obs.FORWARD``. On the
+    eager route it holds ``obs.BOT_MLP``, ``obs.BAGS``, ``obs.INTERACT``
+    (the bags' cast to the interaction's dtype included) and
+    ``obs.TOP_MLP`` (``repro_torch.obs``); a replay has no child spans.
     """
     with obs.span(obs.FORWARD):
-        hybrid = hybrid and mesh is not None and axes is not None
-        dense_in = batch["dense"]
-        if hybrid:
-            dense_in = _constrain_hybrid(dense_in, mesh, axes)
-        with obs.span(obs.BOT_MLP):
-            x = mlp(params["bot"], dense_in)
-        with obs.span(obs.BAGS):
-            if mesh is None:
-                all_bags = bags(params, batch["indices"], plain)
-            else:
-                all_bags = torch.stack(
-                    [_bag(params, batch["indices"][:, t, :], t, mesh, axes,
-                          hybrid, table_2d=hybrid and table_2d)
-                     for t in range(cfg.n_tables)], dim=1)
-        with obs.span(obs.INTERACT):
-            feat = interact(x, all_bags, cfg.interaction, plain)
-        with obs.span(obs.TOP_MLP):
-            return mlp(params["top"], feat)[:, 0]          # logits (B,)
+        if eager_reason(params, batch, mesh, plain) is None:
+            return _graphed(params, batch, cfg)
+        return _eager(params, batch, cfg, mesh, axes, hybrid, table_2d,
+                      plain)
+
+
+def _eager(params, batch, cfg: DLRMConfig, mesh, axes, hybrid: bool,
+           table_2d: bool, plain: bool) -> torch.Tensor:
+    """``forward``'s eager route: each layer dispatched from Python."""
+    hybrid = hybrid and mesh is not None and axes is not None
+    dense_in = batch["dense"]
+    if hybrid:
+        dense_in = _constrain_hybrid(dense_in, mesh, axes)
+    with obs.span(obs.BOT_MLP):
+        x = mlp(params["bot"], dense_in)
+    with obs.span(obs.BAGS):
+        if mesh is None:
+            all_bags = bags(params, batch["indices"], plain)
+        else:
+            all_bags = torch.stack(
+                [_bag(params, batch["indices"][:, t, :], t, mesh, axes,
+                      hybrid, table_2d=hybrid and table_2d)
+                 for t in range(cfg.n_tables)], dim=1)
+    with obs.span(obs.INTERACT):
+        feat = interact(x, all_bags, cfg.interaction, plain)
+    with obs.span(obs.TOP_MLP):
+        return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
 
 def loss(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
@@ -334,7 +516,7 @@ def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
     return mlp(params["top"], feat)[:, 0]                        # (N,)
 
 
-def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
+def add_remap(params, rank_ofs, hot_sizes=None, graphs: bool = True) -> dict:
     """Attach per-table logical->rank hash tables (RecFlash layout) and the
     hot size that splits each stored table into its two tiers.
 
@@ -347,6 +529,11 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     checking a wider one reads its maximum back from the device. Tables of
     a dtype the kernel does not take (float64, for a float64 oracle) get no
     descriptors: only the plain route serves them.
+
+    The dict also holds an empty ``GraphCache`` (key ``GRAPHS``), for the
+    CUDA graphs ``forward`` captures on these params (module docstring).
+    ``graphs=False`` puts None there, for a dict built anew for each call:
+    a graph captured for it would never replay, so its calls stay eager.
     """
     device = params["tables"][0].device
     rank_of = []
@@ -362,4 +549,8 @@ def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     desc = (describe(params["tables"], hot, rank_of)
             if params["tables"][0].dtype in _build.DTYPE_CODES else None)
     return {**params, "rank_of": rank_of, "hot_sizes": hot,
-            "sls_desc": desc}
+            "sls_desc": desc, GRAPHS: GraphCache() if graphs else None}
+
+
+forward.graph_captures = 0   # graphs captured since the last reset
+forward.graph_replays = 0    # graph replays since the last reset

@@ -17,8 +17,9 @@ it each device operation, inside the span that launched it.
 
 Spans nest by containment on the thread: a child lies inside its parent's
 interval in the trace, so no ids are kept. ``models.dlrm.forward`` opens
-``FORWARD`` around each call and, inside it in this order, ``BOT_MLP``,
-``BAGS``, ``INTERACT`` and ``TOP_MLP``.
+``FORWARD`` around each call and, inside it in this order on its eager
+route, ``BOT_MLP``, ``BAGS``, ``INTERACT`` and ``TOP_MLP``; a replay of its
+CUDA graph (a small inference batch) holds no child span.
 """
 
 from __future__ import annotations

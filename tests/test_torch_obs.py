@@ -12,6 +12,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import obs
+from repro_torch.kernels.dot_interaction import dot_interaction_fused
+from repro_torch.kernels.recflash_sls import recflash_sls_grouped
 from repro_torch.models import dlrm
 
 NAMES = (obs.FORWARD,) + obs.CHILDREN
@@ -113,10 +115,11 @@ def card():
     return torch.device("cuda")
 
 
-def _rmc2_shaped(table_dtype=torch.float32):
+def _rmc2_shaped(table_dtype=torch.float32, b=2048):
     """rmc2's widths (32 tables, 120 lookups, D=64, its MLPs) over small
     tables stored in ``table_dtype`` (the MLPs float32, as dlrm-mlperf
-    runs), and a serving batch of 64."""
+    runs), and batches of ``b`` rows: by default above the forward's graph
+    route's limit (``dlrm.GRAPH_MAX_ROWS``), so it runs eagerly."""
     cfg = dlrm.DLRMConfig(name="rmc2-small", n_tables=32, n_dense=256,
                           embed_dim=64, n_rows=(20_000,) * 32, lookups=120,
                           bot_mlp=(128, 64), top_mlp=(128, 64))
@@ -126,7 +129,7 @@ def _rmc2_shaped(table_dtype=torch.float32):
     rank_of = [torch.randperm(n, generator=gen, device="cuda").to(torch.int32)
                for n in cfg.n_rows]
     params = dlrm.add_remap(params, rank_of, [2000] * cfg.n_tables)
-    return cfg, params, _batches(cfg, n=3, b=64, device="cuda")
+    return cfg, params, _batches(cfg, n=3, b=b, device="cuda")
 
 
 def _traced(fn):
@@ -193,3 +196,33 @@ def test_launches_lie_inside_their_spans(card, table_dtype):
     assert "sls_kernel" in sls and "interaction_kernel" in inter[-1]
     assert not any("sls_kernel" in op or "interaction_kernel" in op
                    for n in (obs.BOT_MLP, obs.TOP_MLP) for op in by_span[n])
+
+
+@pytest.mark.cuda
+def test_a_replay_lies_inside_the_forward_span(card):
+    """At 64 rows the forward replays a CUDA graph: its launch, and the
+    copies into and out of the graph's buffers, lie inside
+    ``dlrm.forward``, which holds no child span. The card runs the graph's
+    SLS and interaction kernels once each, and their wrappers count
+    nothing."""
+    cfg, params, batches = _rmc2_shaped(b=64)
+    with torch.inference_mode():
+        dlrm.forward(params, batches[0], cfg)         # eager, then captured
+        torch.cuda.synchronize()
+        counts = (dlrm.forward.graph_replays, recflash_sls_grouped.launches,
+                  dot_interaction_fused.launches)
+        events = _traced(lambda: dlrm.forward(params, batches[1], cfg))
+    assert (dlrm.forward.graph_replays, recflash_sls_grouped.launches,
+            dot_interaction_fused.launches) == \
+        (counts[0] + 1, counts[1], counts[2])
+    ran = [e.name() for e in _on_card(events)]
+    assert sum("sls_kernel" in n for n in ran) == 1, ran
+    assert sum("interaction_kernel" in n for n in ran) == 1, ran
+    spans = [e for e in events if e.name() in NAMES]
+    assert [e.name() for e in spans] == [obs.FORWARD]
+    f0, f1 = spans[0].start_ns(), spans[0].end_ns()
+    graphs = [e for e in events if e.name().startswith("cudaGraphLaunch")]
+    launches = graphs + [e for e in events if e.name() in LAUNCHES]
+    assert len(graphs) == 1 and len(launches) >= 3
+    for e in launches:
+        assert f0 <= e.start_ns() <= e.end_ns() <= f1, (e.name(), f0, f1)
