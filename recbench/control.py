@@ -1,7 +1,7 @@
 """The check's two readings on the card, for setting a configuration's
-limit: the control (the reference with TF32 products, put in the
-program's place) against the float32 reference, on samples drawn as a run
-of the cell draws them.
+limit: the control (the cell's model's reference with TF32 products, put
+in the program's place) against the float32 reference, on samples drawn
+as a run of the cell draws them.
 
     python3 recbench/control.py --workload rmc2-bulk-k0 --seeds 1,2,3
 
@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from recbench import harness, reference, synth, traffic
+    from recbench import harness, synth
     from recbench.spec import Benchmark
 
     if not torch.cuda.is_available():
@@ -39,8 +39,8 @@ def main(argv=None) -> int:
     model, tr = cell.model, cell.traffic
     dev = torch.device("cuda")
     for seed in (int(s) for s in args.seeds.split(",")):
-        weights = harness.make_weights(model, seed, dev)
-        dense, indices, _ = traffic.make_pool(model, tr, seed, dev)
+        weights = model.make_weights(seed, dev)
+        dense, indices, _ = model.make_pool(tr, seed, dev)
         rng = np.random.default_rng(synth.derive(seed, "check"))
         if tr["mode"] == "bulk":
             pick = rng.choice(dense.shape[0], harness.CHECK_STEPS,
@@ -51,11 +51,11 @@ def main(argv=None) -> int:
                 dense.shape[0], harness.CHECK_REQUESTS, replace=True))
             d, i = dense[pick, 0], indices[pick, 0]
         with torch.inference_mode():
-            want = reference.logits(model, weights, seed, d, i)
+            want = model.reference_logits(weights, seed, d, i)
             out = {"workload": args.workload, "seed": seed,
                    "samples": int(want.numel())}
             for p in ("tf32", "tf32-card"):
-                got = reference.logits(model, weights, seed, d, i, p)
+                got = model.reference_logits(weights, seed, d, i, p)
                 out[p] = harness.logit_err(model, weights, seed,
                                            [(d, i, got)])
         print(json.dumps(out), flush=True)

@@ -1,15 +1,20 @@
 """One run of one cell: set-up, warm-up, the measured window, the traced
 window, the metrics, the check.
 
-The timed path is the port's: ``repro_torch.models.dlrm.forward`` under
-``torch.inference_mode()``, on parameters built by the port's own set-up
-path. The harness makes the logical tables (``synth``), the MLP weights and
-the traffic from the seed; the port plans each table's remap from access
-counts of a separate sample of the traffic
-(``embedding.layout.RemapSpec.from_counts``), stores it in rank order
-(``remap_table``) and attaches the plans (``models.dlrm.add_remap``). So
-the window runs the ``rank_of`` translation, the two-tier grouped SLS
-kernel, the fused interaction kernel and the MLPs.
+Everything that belongs to the cell's model is its configuration's
+``Model`` (``models/<module>.py``, found by the file's ``model`` key): the
+port's config, the weights and the pool it makes from the seed, the
+program it builds through the port, the timed forward and the plain
+reference. For ``"dlrm"`` the timed path is the port's
+``repro_torch.models.dlrm.forward`` under ``torch.inference_mode()``, on
+parameters built by the port's own set-up path: each table's remap planned
+from access counts of a separate sample of the traffic
+(``embedding.layout.RemapSpec.from_counts``), the table stored in rank
+order (``remap_table``) and the plans attached (``models.dlrm.add_remap``).
+So the window runs the ``rank_of`` translation, the two-tier grouped SLS
+kernel, the fused interaction kernel and the MLPs. The harness reads a
+pool's ids only as a tensor whose leading dimensions are (entries,
+samples).
 
 Two drivers, chosen by the traffic's ``mode``:
 
@@ -25,7 +30,8 @@ Two drivers, chosen by the traffic's ``mode``:
   arrival to its logits on the host.
 
 ``correct`` compares logits that the timed path produced, once the window
-has closed and the program's state is freed, with ``reference.logits``.
+has closed and the program's state is freed, with the model's
+``reference_logits``.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from recbench import reference, synth, traffic as traffic_mod
+from recbench import synth, traffic as traffic_mod
 from recbench.devtrace import DeviceTrace
 from recbench.spec import Benchmark, Cell
 
@@ -86,67 +92,6 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def port_config(model):
-    """The port's ``DLRMConfig`` of ``model``; where the file names a
-    registry arch, its sizes and its tables' dtype must be the registry's
-    (the MLPs keep the file's own, the source's, dtype)."""
-    from repro_torch import configs
-    from repro_torch.models.dlrm import DLRMConfig
-    cfg = DLRMConfig(name=model.name, n_tables=model.n_tables,
-                     n_dense=model.n_dense, embed_dim=model.embed_dim,
-                     n_rows=model.vocabs, lookups=model.lookups,
-                     bot_mlp=model.bot_mlp[1:], top_mlp=model.top_mlp[:-1])
-    if model.arch is not None:
-        bundle = configs.get_arch(model.arch)
-        reg = dataclasses.replace(bundle.cfg, name=model.name)
-        if reg != cfg:
-            raise ValueError(f"{model.name}: the file's sizes differ from "
-                             f"the registry's {model.arch}: {reg} != {cfg}")
-        dtype = bundle.init.keywords["dtype"]
-        if dtype != model.table_dtype:
-            raise ValueError(f"{model.name}: the registry's {model.arch} "
-                             f"holds its tables in {dtype}")
-    return cfg
-
-
-def make_weights(model, seed: int, device) -> dict:
-    """The MLPs' weights, made by the harness from the seed."""
-    return {"bot": synth.mlp_weights(seed, "bot", model.bot_mlp,
-                                     model.mlp_dtype, device),
-            "top": synth.mlp_weights(seed, "top",
-                                     (model.top_in,) + model.top_mlp,
-                                     model.mlp_dtype, device)}
-
-
-def build_program(model, weights: dict, counts, seed: int, device):
-    """The port's set-up path: each table's remap plan from its counts,
-    the table stored in rank order (its logical copy dropped at once, so
-    the peak is the tables plus one), the plans attached. Returns the
-    params and the host seconds spent in the port's calls."""
-    from repro_torch.embedding.layout import RemapSpec, remap_table
-    from repro_torch.models import dlrm
-    spent = 0.0
-    specs, stored = [], []
-    for t, v in enumerate(model.vocabs):
-        logical = synth.make_table(seed, t, v, model.embed_dim,
-                                   model.table_scale, model.table_dtype,
-                                   device)
-        sync(device)
-        t0 = time.perf_counter()
-        spec = RemapSpec.from_counts(counts[t])
-        stored.append(remap_table(logical, spec))
-        sync(device)
-        spent += time.perf_counter() - t0
-        specs.append(spec)
-        del logical
-    t0 = time.perf_counter()
-    params = dlrm.add_remap({"tables": stored, **weights},
-                            [s.rank_of for s in specs],
-                            [s.hot_size for s in specs])
-    sync(device)
-    return params, spent + time.perf_counter() - t0
-
-
 class Reservoir:
     """A seeded uniform sample of ``k`` of a stream's items."""
 
@@ -168,17 +113,13 @@ class Bulk:
 
     def __init__(self, run: Run, cfg, dense: torch.Tensor,
                  indices: torch.Tensor):
-        from repro_torch.models import dlrm
-        self.forward = dlrm.forward
-        self.run, self.cfg = run, cfg
+        self.forward = run.cell.model.forward(cfg, run.params)
         self.dense, self.indices = dense, indices
         self.next = 0
         self.keep = Reservoir(CHECK_STEPS, synth.derive(run.seed, "check"))
 
     def step(self, e: int) -> torch.Tensor:
-        return self.forward(self.run.params, {"dense": self.dense[e],
-                                              "indices": self.indices[e]},
-                            self.cfg)
+        return self.forward(self.dense[e], self.indices[e])
 
     def warm_up(self) -> None:
         for e in range(min(3, self.dense.shape[0])):
@@ -217,9 +158,8 @@ class Online:
 
     def __init__(self, run: Run, cfg, traffic: dict, dense: torch.Tensor,
                  indices: torch.Tensor, seconds: float, device):
-        from repro_torch.models import dlrm
-        self.forward = dlrm.forward
-        self.run, self.cfg, self.device = run, cfg, torch.device(device)
+        self.forward = run.cell.model.forward(cfg, run.params)
+        self.device = torch.device(device)
         self.max_batch = int(traffic["max_batch"])
         self.max_wait = float(traffic["max_wait_us"]) * 1e-6
         self.rate = float(traffic["rate_rps"])
@@ -242,11 +182,9 @@ class Online:
     def step(self, r0: int, r1: int) -> np.ndarray:
         s = r0 % self.pool
         n = r1 - r0
-        batch = {"dense": self.dense[s:s + n].to(self.device,
-                                                 non_blocking=True),
-                 "indices": self.indices[s:s + n].to(self.device,
-                                                     non_blocking=True)}
-        out = self.forward(self.run.params, batch, self.cfg)
+        out = self.forward(
+            self.dense[s:s + n].to(self.device, non_blocking=True),
+            self.indices[s:s + n].to(self.device, non_blocking=True))
         return out.float().cpu().numpy()
 
     def warm_up(self) -> None:
@@ -343,7 +281,7 @@ def logit_err(model, weights, seed, checked) -> float:
     missing, not finite, or of the wrong shape."""
     worst, sq, count = 0.0, 0.0, 0
     for dense, indices, got in checked:
-        want = reference.logits(model, weights, seed, dense, indices)
+        want = model.reference_logits(weights, seed, dense, indices)
         if got.shape != want.shape:
             return math.inf
         gap = (got.float() - want).abs().max()
@@ -363,14 +301,14 @@ def prepare(cell: Cell, seed: int, dev: torch.device):
     dense, indices, run)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    model = cell.model
     t0 = time.perf_counter()
-    cfg = port_config(cell.model)
-    weights = make_weights(cell.model, seed, dev)
-    dense, indices, counts = traffic_mod.make_pool(cell.model, cell.traffic,
-                                                   seed, dev)
+    cfg = model.port_config()
+    weights = model.make_weights(seed, dev)
+    dense, indices, counts = model.make_pool(cell.traffic, seed, dev)
     sync(dev)
     t1 = time.perf_counter()
-    params, remap_s = build_program(cell.model, weights, counts, seed, dev)
+    params, remap_s = model.build_program(weights, counts, seed, dev)
     log(f"set-up: weights and pool {t1 - t0:.3f} s, tables and remap "
         f"{time.perf_counter() - t1:.3f} s (the port's calls {remap_s:.3f} "
         f"s)")

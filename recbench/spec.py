@@ -1,8 +1,14 @@
 """What ``BENCHMARK.json`` names, found by name under the benchmark's
 folder: a cell's configuration (``configs/<config>.json`` through the
-entry's ``file``), its traffic (``traffic/<traffic>.json``) and each metric's
-reader (``metrics/<metric>.py``, a module with ``read(run)`` that returns a
-number, or None where it finds nothing to read).
+entry's ``file``) and the model module that the file's ``model`` key names
+(``models/<model>.py``), its traffic (``traffic/<traffic>.json``) and each
+metric's reader (``metrics/<metric>.py``, a module with ``read(run)`` that
+returns a number, or None where it finds nothing to read).
+
+A model module defines ``Model``, whose ``from_conf(name, conf)`` reads a
+configuration file and refuses one it does not compute; the harness and
+the readers ask the resulting object for everything that belongs to the
+model (``models/dlrm.py`` lists what).
 
 Nothing here imports the program.
 """
@@ -12,62 +18,28 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
 
-import torch
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MODULE = re.compile(r"[A-Za-z_][A-Za-z0-9_]{0,63}")
 
 
-@dataclasses.dataclass(frozen=True)
-class Model:
-    """A DLRM configuration as its file states it. ``bot_mlp`` and
-    ``top_mlp`` are layer widths with the input and the output; the top
-    MLP's input width is derived from the interaction. ``id_rows`` is the
-    file's ``source_vocabs`` where its stored ``vocabs`` are padded beyond
-    them, else ``vocabs``."""
-
-    name: str
-    arch: str | None          # the port's registry name, checked against
-    n_dense: int
-    embed_dim: int
-    vocabs: tuple
-    lookups: int
-    bot_mlp: tuple
-    top_mlp: tuple
-    table_dtype: torch.dtype
-    mlp_dtype: torch.dtype
-    table_scale: float        # logical rows are uniform in [-s, s)
-    logit_err_limit: float    # the check's limit (PERF.md says from what)
-    id_rows: tuple            # rows a table's ids are drawn over
-
-    @property
-    def n_tables(self) -> int:
-        return len(self.vocabs)
-
-    @property
-    def top_in(self) -> int:
-        n = self.n_tables + 1
-        return self.embed_dim + n * (n - 1) // 2
-
-    @classmethod
-    def from_file(cls, name: str, path: Path) -> "Model":
-        c = json.loads(path.read_text())
-        return cls(name=name, arch=c.get("arch"), n_dense=c["n_dense"],
-                   embed_dim=c["embed_dim"], vocabs=tuple(c["vocabs"]),
-                   lookups=c["lookups"], bot_mlp=tuple(c["bot_mlp"]),
-                   top_mlp=tuple(c["top_mlp"]),
-                   table_dtype=DTYPES[c["table_dtype"]],
-                   mlp_dtype=DTYPES[c["mlp_dtype"]],
-                   table_scale=float(c["table_scale"]),
-                   logit_err_limit=float(c["check"]["logit_err_limit"]),
-                   id_rows=tuple(c.get("source_vocabs", c["vocabs"])))
+def load(path: Path, mod_name: str):
+    """The module in the file ``path``, loaded under ``mod_name`` (and
+    entered in ``sys.modules`` under it, where a dataclass's string
+    annotations are looked up while the module runs)."""
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = module
+    spec.loader.exec_module(module)
+    return module
 
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
     name: str
-    model: Model
+    model: object           # the configuration's ``Model``
     traffic_name: str
     traffic: dict
     chips: int
@@ -82,15 +54,38 @@ class Benchmark:
         self.data = json.loads((self.root / "BENCHMARK.json").read_text())
         self.dir = self.root / "recbench"
 
+    def config(self, name: str):
+        """The ``Model`` of configuration ``name``: its file read by the
+        module its ``model`` key names. A file with no such key, one that
+        names no module, or one its module refuses stops the run here."""
+        entry = next((c for c in self.data["configs"] if c["name"] == name),
+                     None)
+        if entry is None:
+            raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+        path = self.root / entry["file"]
+        conf = json.loads(path.read_text())
+        module = conf.get("model")
+        if not isinstance(module, str) or not MODULE.fullmatch(module):
+            raise ValueError(f"{path}: no \"model\" key naming a model "
+                             f"module (recbench/models/<model>.py): "
+                             f"{module!r}")
+        file = self.dir / "models" / f"{module}.py"
+        if not file.is_file():
+            raise ValueError(f"{path}: model {module!r}: no {file}")
+        try:
+            return load(file, f"recbench_model_{module}").Model.from_conf(
+                name, conf)
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"{path}: not a {module!r} configuration: "
+                             f"{e}") from e
+
     def cell(self, name: str) -> Cell:
         for w in self.data["workloads"]:
             if w["name"] == name:
                 break
         else:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-        conf = next(c for c in self.data["configs"]
-                    if c["name"] == w["config"])
-        model = Model.from_file(conf["name"], self.root / conf["file"])
+        model = self.config(w["config"])
         traffic = json.loads(
             (self.dir / "traffic" / f"{w['traffic']}.json").read_text())
         return Cell(name, model, w["traffic"], traffic, int(w["chips"]))
@@ -105,10 +100,6 @@ class Benchmark:
 
     def reader(self, metric: str):
         """``read`` of ``metrics/<metric>.py``."""
-        path = self.dir / "metrics" / f"{metric}.py"
         mod_name = "recbench_metric_" + "".join(
             ch if ch.isalnum() else "_" for ch in metric)
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return load(self.dir / "metrics" / f"{metric}.py", mod_name).read

@@ -1,7 +1,6 @@
 """The yardstick's arithmetic on synthetic inputs: interval unions, idle
 share and idle gaps, percentiles, the SLS's bytes and bound, FLOPs."""
 
-import json
 from pathlib import Path
 
 import numpy as np
@@ -60,9 +59,14 @@ def test_percentiles_drop_nan():
 def test_sls_bytes_and_bound():
     idx = torch.tensor([[[1, 1, 2], [0, 0, 0]],
                         [[2, 3, 1], [0, 4, 0]]], dtype=torch.int32)
+    tables = [idx[:, 0], idx[:, 1]]
     # ids 12 x 4 B, bags 2 x 2 x 8 x 4 B, unique rows (3 + 2) x (32 + 4)
-    assert arith.sls_bytes(idx, 8, 4) == 48 + 128 + 5 * 36
-    assert arith.sls_adds(idx, 8) == 96
+    assert arith.sls_bytes(tables, 8, 4) == 48 + 128 + 5 * 36
+    assert arith.sls_adds(tables, 8) == 96
+    # bags of other lengths: table 0 three lookups, table 1 one
+    odd = [idx[:, 0], idx[:, 1, :1]]
+    assert arith.sls_bytes(odd, 8, 4) == 8 * 4 + 128 + 4 * 36
+    assert arith.sls_adds(odd, 8) == 64
     b, by = arith.bound_s(3.35e12, 1.0)
     assert b == pytest.approx(1.0) and by == "bytes"
     b, by = arith.bound_s(1.0, 67e12)
@@ -75,9 +79,11 @@ def test_flops_per_sample_counts_the_real_layers():
     want = 2 * (256 * 128 + 128 * 64) \
         + 2 * (592 * 128 + 128 * 64 + 64) \
         + 2 * 528 * 64 + 32 * 120 * 64
-    assert arith.flops_per_sample(32, 256, 64, 120, (256, 128, 64),
-                                  (128, 64, 1)) == want
-    conf = json.loads((HERE / "configs" / "rmc2.json").read_text())
-    assert arith.flops_per_sample(
-        len(conf["vocabs"]), conf["n_dense"], conf["embed_dim"],
-        conf["lookups"], conf["bot_mlp"], conf["top_mlp"]) == want
+    bench = Benchmark(HERE.parent)
+    assert bench.config("rmc2").flops_per_sample() == want
+    # dlrm-mlperf: bottom 13-512-256-128, top 479-1024-1024-512-256-1 (479
+    # = 128 + 351 pairs of 27 vectors), 351 dots of 128, 26 one-hot bags
+    want = 2 * (13 * 512 + 512 * 256 + 256 * 128) \
+        + 2 * (479 * 1024 + 1024 * 1024 + 1024 * 512 + 512 * 256 + 256) \
+        + 2 * 351 * 128 + 26 * 128
+    assert bench.config("dlrm-mlperf").flops_per_sample() == want

@@ -42,6 +42,7 @@ def test_form():
         assert all(NAME.fullmatch(k) for k in c["reduced"])
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["reduced"] == c["reduced"]
+        assert (HERE / "models" / f"{conf['model']}.py").is_file()
         assert not any(k.endswith(("_dim", "_rank")) for k in c["reduced"])
         names.add(c["name"])
     pairs = set()
@@ -81,14 +82,15 @@ def test_everything_named_is_found():
     for w in BENCH["workloads"]:
         cell = b.cell(w["name"])
         assert cell.traffic["mode"] in ("bulk", "online")
-        harness.port_config(cell.model)     # the registry's sizes, dtype
+        cell.model.port_config()            # the registry's sizes, dtype
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(b.reader(m["name"]))
 
 
 def test_new_files_are_found_by_name(tmp_path):
-    """A configuration, a traffic mix, a cell and a metric, each added as
-    a file (and an entry of BENCHMARK.json), run with no other change."""
+    """A configuration, a traffic mix, a cell, a metric and a model module,
+    each added as a file (and an entry of BENCHMARK.json), run with no
+    other change."""
     root = tiny.make_root(tmp_path)
     rb = root / "recbench"
     conf = json.loads((rb / "configs" / "tiny.json").read_text())
@@ -118,6 +120,12 @@ def test_new_files_are_found_by_name(tmp_path):
     assert set(r["metrics"]) == {"setup_s", "inferences_per_s",
                                  "steps_seen"}
     assert r["metrics"]["steps_seen"]["value"] * 32 == r["attempted"]
+    # a model of another layout: its module, configuration and cells
+    tiny.add_toy(root)
+    r = harness.run_cell(root, "toy-bulk", 17, 0.2, False, device="cpu")
+    assert r["correct"] and set(r["metrics"]) == {"setup_s",
+                                                  "inferences_per_s"}
+    assert Benchmark(root).cell("toy-bulk").model.lookups == (3, 1, 7)
 
 
 def _run(cwd, *args):

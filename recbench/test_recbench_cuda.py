@@ -5,7 +5,7 @@ Run on the card with ``python -m pytest -q -m cuda recbench``."""
 import pytest
 import torch
 
-from recbench import harness, reference, tiny
+from recbench import harness, tiny
 
 pytestmark = pytest.mark.cuda
 
@@ -39,16 +39,16 @@ def test_broken_sls_is_caught_on_the_card(root, monkeypatch):
 
 
 def test_card_tf32_fails_the_limit(root):
-    from recbench.spec import Model
-    model = Model.from_file("tiny", root / "recbench/configs/tiny.json")
+    from recbench.spec import Benchmark
+    model = Benchmark(root).config("tiny")
     dev = torch.device("cuda")
-    weights = harness.make_weights(model, 3, dev)
+    weights = model.make_weights(3, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     dense = torch.randn((4096, model.n_dense), generator=gen, device=dev)
     idx = torch.randint(0, 400, (4096, model.n_tables, model.lookups),
                         generator=gen, device=dev)
-    want = reference.logits(model, weights, 3, dense, idx)
-    got = reference.logits(model, weights, 3, dense, idx, "tf32-card")
+    want = model.reference_logits(weights, 3, dense, idx)
+    got = model.reference_logits(weights, 3, dense, idx, "tf32-card")
     err = harness.logit_err(model, weights, 3, [(dense, idx, got)])
     assert err > model.logit_err_limit
     assert harness.logit_err(model, weights, 3, [(dense, idx, want)]) == 0

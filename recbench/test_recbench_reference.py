@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from recbench import harness, reference, synth, tiny, traffic
-from recbench.spec import Benchmark, Model
+from recbench.spec import Benchmark
 
 HERE = Path(__file__).resolve().parent
 
@@ -29,8 +29,8 @@ def _program_and_reference(model, seed, n_rows_pool=2):
                                                    "indices": indices[e]},
                                       cfg) for e in range(n_rows_pool)])
         d, i = dense.flatten(0, 1), indices.flatten(0, 1)
-        want = reference.logits(model, weights, seed, d, i)
-        ctrl = reference.logits(model, weights, seed, d, i, "tf32")
+        want = model.reference_logits(weights, seed, d, i)
+        ctrl = model.reference_logits(weights, seed, d, i, "tf32")
     return got, want, ctrl
 
 
@@ -39,8 +39,7 @@ def _err(got, want):
 
 
 def test_reference_matches_the_port_on_a_tiny_dlrm(tmp_path):
-    root = tiny.make_root(tmp_path)
-    model = Model.from_file("tiny", root / "recbench/configs/tiny.json")
+    model = Benchmark(tiny.make_root(tmp_path)).config("tiny")
     got, want, _ = _program_and_reference(model, 2**33 + 1)
     assert _err(got, want) < 1e-5
     # the bags move the logits: the SLS is part of what is compared
@@ -77,13 +76,13 @@ def test_control_fails_and_program_passes_at_full_width(config, tmp_path,
     sound = harness.run_cell(root, "tiny-bulk", seed, 0.2, False,
                              device="cpu")
     assert sound["correct"]
-    model = Model.from_file("tiny", root / "recbench/configs/tiny.json")
-    weights = harness.make_weights(model, seed, "cpu")
+    model = Benchmark(root).config("tiny")
+    weights = model.make_weights(seed, "cpu")
     from repro_torch.models import dlrm
 
     def control(params, batch, cfg, *a, **k):
-        return reference.logits(model, weights, seed, batch["dense"],
-                                batch["indices"], "tf32")
+        return model.reference_logits(weights, seed, batch["dense"],
+                                      batch["indices"], "tf32")
     monkeypatch.setattr(dlrm, "forward", control)
     r = harness.run_cell(root, "tiny-bulk", seed, 0.2, False, device="cpu")
     assert not r["correct"]
@@ -112,8 +111,15 @@ def test_table_rows_are_counter_based():
 
 
 def test_reference_imports_nothing_of_the_program():
-    code = ("import sys; import recbench.reference, recbench.traffic, "
-            "recbench.arith; "
+    """The shared yardstick and the dlrm module load, and the module's
+    reference and arithmetic run, without a module of the program."""
+    code = ("import sys, torch; import recbench.reference, recbench.traffic, "
+            "recbench.arith; from recbench.spec import Benchmark; "
+            "m = Benchmark('.').config('rmc2'); "
+            "i = torch.zeros((2, m.n_tables, m.lookups), dtype=torch.int32); "
+            "m.reference_logits(m.make_weights(1, 'cpu'), 1, "
+            "torch.ones((2, m.n_dense)), i); "
+            "m.flops_per_sample(); m.sls_work(i); "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('repro', 'repro_torch', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

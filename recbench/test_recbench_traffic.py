@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from recbench import tiny, traffic
-from recbench.spec import Model
+from recbench.spec import Benchmark
 
 HERE = Path(__file__).resolve().parent
 
@@ -20,16 +20,15 @@ def _traffic(name):
 
 
 def _tiny_model(tmp_path):
-    root = tiny.make_root(tmp_path)
-    return Model.from_file("tiny", root / "recbench/configs/tiny.json")
+    return Benchmark(tiny.make_root(tmp_path)).config("tiny")
 
 
 def test_seeded_pool_repeats(tmp_path):
     model = _tiny_model(tmp_path)
     tr = tiny.TRAFFIC["tiny-bulk"]
-    a = traffic.make_pool(model, tr, 2**31 + 5, "cpu")
-    b = traffic.make_pool(model, tr, 2**31 + 5, "cpu")
-    c = traffic.make_pool(model, tr, 2**31 + 6, "cpu")
+    a = model.make_pool(tr, 2**31 + 5, "cpu")
+    b = model.make_pool(tr, 2**31 + 5, "cpu")
+    c = model.make_pool(tr, 2**31 + 6, "cpu")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert all(np.array_equal(x, y) for x, y in zip(a[2], b[2]))
     assert not torch.equal(a[1], c[1])
@@ -66,7 +65,7 @@ def test_ids_never_reach_padding_rows(tmp_path):
     ids are drawn over the source's rows alone."""
     model = dataclasses.replace(_tiny_model(tmp_path), id_rows=(3, 400, 40))
     tr = tiny.TRAFFIC["tiny-bulk"]
-    _, idx, counts = traffic.make_pool(model, tr, 2**31 + 8, "cpu")
+    _, idx, counts = model.make_pool(tr, 2**31 + 8, "cpu")
     for t, rows in enumerate(model.id_rows):
         assert int(idx[:, :, t].max()) < rows
         assert counts[t].size == model.vocabs[t]

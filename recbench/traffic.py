@@ -1,5 +1,6 @@
-"""The one traffic generator: arrival schedules, Zipf ids and the seeded
-pools a cell's traffic file describes.
+"""The one traffic generator: arrival schedules and Zipf ids, from which a
+cell's model module (``models/<module>.py``, ``Model.make_pool``) makes the
+seeded pool its traffic file describes.
 
 Frozen copies, so that a change to the program cannot move the yardstick:
 ``poisson_arrivals`` from ``repro_torch.serving.workload``;
@@ -70,39 +71,14 @@ def _draw(cdf: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
     return torch.searchsorted(cdf, u, right=True).clamp_(max=cdf.numel() - 1)
 
 
-def make_pool(model, traffic: dict, seed: int, device):
-    """The pool a cell's timed path cycles through, and the access counts
-    that profile its tables.
-
-    Returns ``dense`` (N, B, n_dense) float32 (standard normal),
-    ``indices`` (N, B, n_tables, lookups) int32 logical ids and ``counts``,
-    one (V,) int64 numpy array per table. The pool holds N entries of B
-    samples (a bulk cell's batches; an online cell's requests, B = 1). The
-    counts come from a separate sample of ``profile_samples`` samples of
-    the same traffic (same popularity permutation, other draws), never
-    from the pool. Table ``t``'s ids are drawn over its first
-    ``model.id_rows[t]`` rows (the source's vocabulary, where the stored
-    table is padded beyond it), so padding rows are never looked up.
-    """
-    n, b = int(traffic["pool_entries"]), int(traffic["entry_samples"])
-    n_prof = int(traffic["profile_samples"])
-    alpha = float(traffic["ids"]["alpha"])
-    lookups = model.lookups
-    gen = torch.Generator(device=device)
-    gen.manual_seed(derive(seed, "pool"))
-    prof_gen = torch.Generator(device=device)
-    prof_gen.manual_seed(derive(seed, "profile"))
-    dense = torch.randn((n, b, model.n_dense), generator=gen, device=device)
-    indices = torch.empty((n, b, model.n_tables, lookups), dtype=torch.int32,
-                          device=device)
-    counts = []
-    for t, (v, rows) in enumerate(zip(model.vocabs, model.id_rows,
-                                      strict=True)):
-        perm = torch.randperm(rows, generator=gen, device=device)
-        cdf = zipf_cdf(rows, alpha, device)
-        ranks = _draw(cdf, n * b * lookups, gen)
-        indices[:, :, t, :] = perm[ranks].view(n, b, lookups).to(torch.int32)
-        prof = perm[_draw(cdf, n_prof * lookups, prof_gen)]
-        counts.append(torch.bincount(prof, minlength=v).cpu().numpy())
-        del perm, cdf, ranks, prof
-    return dense, indices, counts
+def zipf_ids(rows: int, alpha: float, n: int, n_prof: int,
+             gen: torch.Generator, prof_gen: torch.Generator):
+    """``n`` int64 ids over ``rows`` rows, Zipf(``alpha``) by popularity
+    rank, each rank scattered to an id by a random permutation drawn from
+    ``gen``, which then draws the ids; and ``n_prof`` more from
+    ``prof_gen`` over the same permutation, to profile the table. On
+    ``gen``'s device."""
+    device = gen.device
+    perm = torch.randperm(rows, generator=gen, device=device)
+    cdf = zipf_cdf(rows, alpha, device)
+    return perm[_draw(cdf, n, gen)], perm[_draw(cdf, n_prof, prof_gen)]
