@@ -120,13 +120,21 @@ Phases, each of which fails the run when it fails:
    plain route's on the same batch; DIN's and BERT4Rec's serve_p99 and
    GraphSAGE's molecule and full_graph_sm steps, card against CPU; peak
    memory per arch;
-14. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
+14. dcn: MLPerf's DLRM-DCNv2 (``configs.dlrm_dcnv2``) at its published
+   widths and bag lengths on bf16 tables cut to ``DCN_ROWS`` rows: the
+   grouped SLS over its ragged bags (1 to 100 ids a table, 214 a sample)
+   against its plain version bit for bit in f32 and bf16 at D=128, a
+   uniform launch against a ragged one of the same bags, bit for bit; the
+   forward's graph replay at 64 rows against its eager call, bit for bit;
+   the eager forward at ``DCN_BATCH`` against ``plain=True``; the ragged
+   launch and the forward timed with CUDA events;
+15. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
    subprocesses at once, over the cells the next two phases read
    (qwen3-1.7b's, deepseek-v3-671b's decode_32k, DIN's and BERT4Rec's):
    each cell's plan run on rank 0's blocks of meta tensors under a fake
    256-rank group, its per-rank flops, bytes, wire bytes, H100 roofline
    bound, peak and ``fits_hbm`` printed; any failed cell fails the run;
-15. recsys_mesh: DIN's and BERT4Rec's registry cells with their item
+16. recsys_mesh: DIN's and BERT4Rec's registry cells with their item
    tables row-sharded over ``model`` (masked lookups summed over it,
    BERT4Rec's tied output and cloze loss on the rank's vocab block):
    train_batch, serve_p99, serve_bulk and retrieval_cand through the
@@ -137,7 +145,7 @@ Phases, each of which fails the run when it fails:
    the 16 x 16 mesh on the card under the fake group, per-call time and
    peak memory beside the dry-run's counted peak; no launch of any
    kernel;
-16. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
+17. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
    real tensors on the card, at full width and depth, under the fake
    256-rank group this process starts (its collectives move nothing):
    qwen3-1.7b's train_4k, prefill_32k and decode_32k and
@@ -156,6 +164,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -2173,6 +2182,106 @@ def phase_registry(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ dcn --
+# DLRM-DCNv2's tables cut to at most this many rows (its widths, bag
+# lengths and bf16 tables kept), and the batch its forward is checked at
+DCN_ROWS = 100_000
+DCN_BATCH = 4096
+
+
+def _dcn_model(gen: torch.Generator):
+    """DLRM-DCNv2 with tables of at most ``DCN_ROWS`` rows in bf16, stored
+    in the order of a random permutation, the remap attached; nonzero
+    biases. Returns (cfg, params)."""
+    from repro_torch.configs import dlrm_dcnv2
+    cfg = dataclasses.replace(dlrm_dcnv2.CONFIG, n_rows=tuple(
+        min(v, DCN_ROWS) for v in dlrm_dcnv2.CONFIG.n_rows))
+    p = dlrm.init(0, cfg, device="cuda")
+    for layer in p["bot"] + p["cross"] + p["top"]:
+        layer["b"].normal_(0.0, 0.1, generator=gen)
+    rank_of = [torch.randperm(v, generator=gen, device="cuda")
+               for v in cfg.n_rows]
+    tables = [t.to(torch.bfloat16)[r.argsort()]
+              for t, r in zip(p["tables"], rank_of, strict=True)]
+    hot = [max(1, v // 500) for v in cfg.n_rows]
+    return cfg, dlrm.add_remap({**p, "tables": tables}, rank_of, hot)
+
+
+def _dcn_batch(cfg, b: int, gen: torch.Generator) -> dict:
+    ids = [torch.randint(0, v, (b, n), generator=gen, device="cuda")
+           for v, n in zip(cfg.n_rows, cfg.lookups, strict=True)]
+    return {"dense": torch.randn(b, cfg.n_dense, generator=gen,
+                                 device="cuda"),
+            "indices": torch.cat(ids, dim=1).to(torch.int32)}
+
+
+def phase_dcn(card: str, gen: torch.Generator) -> dict:
+    """MLPerf's DLRM-DCNv2 through the port on the card (module docstring,
+    phase 14). Returns the launches of the phase's counted calls and the
+    times."""
+    t0 = time.perf_counter()
+    cfg, p = _dcn_model(gen)
+    tables, hot, rank_of = p["tables"], p["hot_sizes"], p["rank_of"]
+    reset_counts()
+    out: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tabs = [t.to(dtype) for t in tables]
+        desc = describe(tabs, hot, rank_of)
+        for b in (1, 1024):
+            idx = _dcn_batch(cfg, b, gen)["indices"]
+            got = recflash_sls_grouped(tabs, hot, idx, rank_of, desc,
+                                       cfg.lookups)
+            want = ops.sls_grouped_ref(tabs, hot, idx, rank_of, cfg.lookups)
+            compare(f"recflash_sls_grouped ragged {str(dtype)[6:]} (26 "
+                    f"tables, bags of 1 to 100, D=128, B={b})", got, want,
+                    dict(rtol=0.0, atol=0.0))
+        # bags of one length: a uniform launch and a ragged one
+        flat = torch.stack([torch.randint(0, v, (b, 8), generator=gen,
+                                          device="cuda")
+                            for v in cfg.n_rows], dim=1).to(torch.int32)
+        uni = recflash_sls_grouped(tabs, hot, flat, rank_of, desc)
+        compare(f"recflash_sls_grouped uniform vs ragged {str(dtype)[6:]} "
+                f"(L=8)", uni, recflash_sls_grouped(
+                    tabs, hot, flat.flatten(1), rank_of, desc, (8,) * 26),
+                dict(rtol=0.0, atol=0.0))
+        del tabs, desc
+    big = _dcn_batch(cfg, DCN_BATCH, gen)
+    idx = big["indices"]
+    n_bytes = idx.numel() * 4 + DCN_BATCH * 26 * 128 * 2
+    for t, ids in enumerate(idx.split(cfg.lookups, dim=1)):
+        n_bytes += int(torch.unique(ids).numel()) * (128 * 2 + 4)
+    out["sls_ms"] = time_ms(
+        lambda: recflash_sls_grouped(tables, hot, idx, rank_of,
+                                     p["sls_desc"], cfg.lookups), [()] * 8)
+    out["sls_bound_ms"], _ = bound_ms(n_bytes, idx.numel() * 128)
+    with torch.inference_mode():
+        small = _dcn_batch(cfg, 64, gen)
+        eager = {**p, dlrm.GRAPHS: None}
+        replays = dlrm.forward.graph_replays
+        for _ in range(3):               # capture, then two replays
+            got = dlrm.forward(p, small, cfg)
+            want = dlrm.forward(eager, small, cfg)
+            compare("dlrm-dcnv2 forward, graph replay vs eager (64 rows)",
+                    got, want, dict(rtol=0.0, atol=0.0))
+        if dlrm.forward.graph_replays - replays != 2:
+            raise AssertionError("the DCN forward at 64 rows never "
+                                 "replayed its graph")
+        got = dlrm.forward(p, big, cfg)
+        compare(f"dlrm-dcnv2 forward vs plain=True ({DCN_BATCH} rows)", got,
+                dlrm.forward(p, big, cfg, plain=True), LOGIT_TOL)
+        out["forward_ms"] = time_ms(
+            lambda: dlrm.forward(p, big, cfg), [()] * 4, launches=40)
+    out["launches"] = read_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[dcn] on {card}: ragged SLS {out['sls_ms']:.3f} ms at "
+          f"{DCN_BATCH} (bound {out['sls_bound_ms']:.3f} ms), forward "
+          f"{out['forward_ms']:.3f} ms at {DCN_BATCH}; launches "
+          f"{out['launches']}; the phase took {time.perf_counter() - t0:.1f}"
+          f" s")
+    del p, tables, rank_of
+    return out
+
+
 # --------------------------------------------------------------- dryrun --
 DRYRUN_TIMEOUT_S = 900
 # the dry-run's cells the card phases read, on the 16 x 16 mesh: lm_blocks'
@@ -3799,6 +3908,10 @@ def main() -> int:
     mark("registry")
     gc.collect()
     torch.cuda.empty_cache()
+    dcn = phase_dcn(card, gen)
+    mark("dcn")
+    gc.collect()
+    torch.cuda.empty_cache()
     lm_out = phase_lm(card)
     mark("lm")
     gc.collect()
@@ -3826,7 +3939,7 @@ def main() -> int:
                "lm_mesh": lm_mesh["launches"],
                "recsys_mesh": recsys_mesh["launches"],
                "lm_blocks": lm_blocks["launches"],
-               "registry": registry["launches"]}
+               "registry": registry["launches"], "dcn": dcn["launches"]}
     for r in records:
         for e in [r, *r["entries"]]:
             name = e["entry"] if e["entry"] in COUNTERS else e["name"]

@@ -9,6 +9,8 @@
 //
 // Computes, for every bag (b, t) of a batch:
 //   out[b, t, :] = sum_l row_t(rank_t(indices[b, t, l])),
+// or, in a ragged launch (one bag length a table),
+//   out[b, t, :] = sum_{l < L_t} row_t(rank_t(indices[b, col_t + l])),
 // added in f32 in lookup order and stored in the tables' dtype (f32 or
 // bf16, rounded to nearest even once, in the epilogue), where rank_t(id) =
 // rank_of_t[id], or id itself for a table given ranks, and a rank r below
@@ -28,6 +30,15 @@
 //   rank_of live in a small device array of TableDesc, built once when the
 //   tables are described (kernels/recflash_sls.py::describe, called by
 //   dlrm.add_remap); indices (B, n_tables, L) are read with their strides.
+// - Ragged bags (DLRM-DCNv2: bags of 1 to 100 ids, a length a table):
+//   indices (B, sum_t L_t), table t's ids in columns [col_t, col_t + L_t).
+//   Each table's L_t and col_t ride in the launch's arguments (a Ragged
+//   struct passed by value, so a CUDA graph captures them and no copy to
+//   the card is needed), read by the instance whose layout is Ragged. A
+//   uniform launch runs the instance whose layout is the empty Uniform,
+//   whose code is the kernel's as it was before ragged bags. Shared memory
+//   and the ring are sized by the longest bag, and a bag of L_t ids waits
+//   for L_t copies: the block lives as long as its longest bag.
 // - A group of G threads (a power of two, at most 32; 16 for D=64 f32)
 //   serves one bag, and a block of 128 threads serves 128/G bags, so a
 //   dlrm-rm2 batch (1664 bags) is 208 blocks over the 132 SMs.
@@ -88,6 +99,19 @@ constexpr int kStages = 32;          // ring slots per thread (vector path)
 constexpr int kAhead = 16;           // lookups per register batch (scalar)
 constexpr int kIdx = 8;              // lookups a thread translates per round
 constexpr int kMaxSmem = 232448;     // 227 KB, the most a block can have
+constexpr int kMaxRagged = 128;      // tables a ragged launch takes
+
+// The bag layouts a launch reads: every bag `lookups` long at table stride
+// s_t (Uniform), or bag t L_t long at column col_t (Ragged: 1 KB of kernel
+// arguments).
+struct Uniform {
+  static constexpr bool kRagged = false;
+};
+struct Ragged {
+  static constexpr bool kRagged = true;
+  int lookups[kMaxRagged];
+  int col[kMaxRagged];
+};
 
 __device__ __forceinline__ long long clamp_to(long long x, long long n) {
   return x < 0 ? 0 : (x >= n ? n - 1 : x);
@@ -167,16 +191,18 @@ __device__ __forceinline__ const T* row_of(const TableDesc& d, int32_t rank,
 }
 
 // descs: the group's descriptors, or nullptr for the one table `one`.
+// lookups: every bag's length, or in a ragged launch the longest bag's.
 // Shared memory: the ranks of the block's bags (lookups int32 each, padded
 // to 16 bytes), then, on the vector path, the ring: slot s of thread lane
 // of bag g is uint4 number (g * slots + s) * group + lane.
-template <typename T, bool kVec>
+template <typename T, bool kVec, typename Layout>
 __global__ void __launch_bounds__(kThreads)
     sls_kernel(const TableDesc* __restrict__ descs, TableDesc one,
                const int32_t* __restrict__ indices, long long s_b,
                long long s_t, long long s_l, T* __restrict__ out,
-               int n_bags, int n_tables, int lookups, int dim, int group,
-               int slots, int ranks_bytes) {
+               int n_bags, int n_tables, int max_lookups, int dim, int group,
+               int slots, int ranks_bytes,
+               __grid_constant__ const Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int per_block = blockDim.x / group;
   const int g = threadIdx.x / group;
@@ -185,11 +211,16 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = bag < n_bags;
   const int b = bag / n_tables;
   const int t = bag % n_tables;
-  int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * lookups;
+  int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * max_lookups;
   TableDesc d = one;
+  int lookups = max_lookups;
   if (live) {
     if (descs != nullptr) d = descs[t];
     const int32_t* ids = indices + b * s_b + t * s_t;
+    if constexpr (Layout::kRagged) {
+      lookups = layout.lookups[t];
+      ids = indices + b * s_b + layout.col[t] * s_l;
+    }
     for (int l0 = lane; l0 < lookups; l0 += kIdx * group) {
       long long r[kIdx];
 #pragma unroll
@@ -259,11 +290,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, typename Layout>
 int launch(const TableDesc* descs, const TableDesc& one,
            const int32_t* indices, long long s_b, long long s_t,
            long long s_l, T* out, int batch, int n_tables, int lookups,
-           int dim, cudaStream_t stream) {
+           int dim, const Layout& layout, cudaStream_t stream) {
   const int units = kVec ? dim / static_cast<int>(16 / sizeof(T)) : dim;
   int group = 1;
   while (group < units && group < 32) group <<= 1;
@@ -283,16 +314,52 @@ int launch(const TableDesc* descs, const TableDesc& one,
   cudaGetDevice(&dev);
   if (dev < 64 && !(attr_set >> dev & 1ull)) {
     cudaError_t e = cudaFuncSetAttribute(
-        sls_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        sls_kernel<T, kVec, Layout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set |= 1ull << dev;
   }
   const dim3 grid((n_bags + per_block - 1) / per_block);
-  sls_kernel<T, kVec><<<grid, per_block * group, smem, stream>>>(
+  sls_kernel<T, kVec, Layout><<<grid, per_block * group, smem, stream>>>(
       descs, one, indices, s_b, s_t, s_l, out, n_bags, n_tables, lookups, dim,
-      group, slots, static_cast<int>(ranks_bytes));
+      group, slots, static_cast<int>(ranks_bytes), layout);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename Layout>
+int launch_vec(int vec, const TableDesc* descs, const TableDesc& one,
+               const int32_t* indices, long long s_b, long long s_t,
+               long long s_l, T* out, int batch, int n_tables, int lookups,
+               int dim, const Layout& layout, cudaStream_t stream) {
+  return vec ? launch<T, true>(descs, one, indices, s_b, s_t, s_l, out, batch,
+                               n_tables, lookups, dim, layout, stream)
+             : launch<T, false>(descs, one, indices, s_b, s_t, s_l, out,
+                                batch, n_tables, lookups, dim, layout, stream);
+}
+
+template <typename T>
+int launch_layout(const int* ragged, int vec, const TableDesc* descs,
+                  const TableDesc& one, const int32_t* indices, long long s_b,
+                  long long s_t, long long s_l, void* out, int batch,
+                  int n_tables, int lookups, int dim, cudaStream_t stream) {
+  T* o = static_cast<T*>(out);
+  if (ragged == nullptr) {
+    return launch_vec<T>(vec, descs, one, indices, s_b, s_t, s_l, o, batch,
+                         n_tables, lookups, dim, Uniform{}, stream);
+  }
+  if (n_tables > kMaxRagged || descs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Ragged layout{};
+  for (int t = 0; t < n_tables; ++t) {
+    layout.lookups[t] = ragged[t];
+    layout.col[t] = ragged[n_tables + t];
+    if (ragged[t] < 1 || ragged[t] > lookups) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return launch_vec<T>(vec, descs, one, indices, s_b, s_t, s_l, o, batch,
+                       n_tables, lookups, dim, layout, stream);
 }
 
 }  // namespace
@@ -302,34 +369,34 @@ int launch(const TableDesc* descs, const TableDesc& one,
 // n_tables, lookups) int32 with element strides s_b, s_t, s_l; out (batch,
 // n_tables, dim) in the tables' dtype, contiguous (16-byte aligned where vec
 // is 1). dtype: 0 = float32, 1 = bfloat16, of the tables and out. vec: 1
-// if dim and every table pointer allow 16-byte copies. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for what the kernel does not
-// take (a bad dtype, more than 227 KB of shared memory).
+// if dim and every table pointer allow 16-byte copies. ragged: nullptr, or
+// for a ragged launch 2 * n_tables host ints, each table's bag length (1 to
+// lookups, the longest) then its first column: indices are then (batch,
+// sum of the lengths), read with strides s_b and s_l (s_t unused), and
+// descs must be given. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the kernel does not take (a bad dtype,
+// more than 227 KB of shared memory, a bad ragged layout or more than 128
+// tables in one).
 extern "C" int recflash_sls_launch(const void* descs, const void* hot,
                                    const void* cold, long long hot_rows,
                                    long long rows, const void* indices,
                                    long long s_b, long long s_t,
                                    long long s_l, void* out, int batch,
                                    int n_tables, int lookups, int dim,
-                                   int dtype, int vec, void* stream) {
+                                   int dtype, int vec, const int* ragged,
+                                   void* stream) {
   const TableDesc* ds = static_cast<const TableDesc*>(descs);
   const TableDesc one{hot, cold, nullptr, hot_rows, rows, rows};
   const int32_t* idx = static_cast<const int32_t*>(indices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    float* o = static_cast<float*>(out);
-    return vec ? launch<float, true>(ds, one, idx, s_b, s_t, s_l, o, batch,
-                                     n_tables, lookups, dim, s)
-               : launch<float, false>(ds, one, idx, s_b, s_t, s_l, o, batch,
-                                      n_tables, lookups, dim, s);
+    return launch_layout<float>(ragged, vec, ds, one, idx, s_b, s_t, s_l,
+                                out, batch, n_tables, lookups, dim, s);
   }
   if (dtype == 1) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    return vec ? launch<__nv_bfloat16, true>(ds, one, idx, s_b, s_t, s_l, o,
-                                             batch, n_tables, lookups, dim, s)
-               : launch<__nv_bfloat16, false>(ds, one, idx, s_b, s_t, s_l, o,
-                                              batch, n_tables, lookups, dim,
-                                              s);
+    return launch_layout<__nv_bfloat16>(ragged, vec, ds, one, idx, s_b, s_t,
+                                        s_l, out, batch, n_tables, lookups,
+                                        dim, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,7 +22,8 @@ from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
 from repro_torch.kernels.dot_interaction import (
     dot_interaction_fused as _fused_kernel)
 from repro_torch.kernels import flash_attention as _attn
-from repro_torch.kernels.recflash_sls import RecFlashSLSGrouped
+from repro_torch.kernels.recflash_sls import (RecFlashSLSGrouped,
+                                              RecFlashSLSRagged)
 from repro_torch.kernels.recflash_sls import recflash_sls as _sls_kernel
 from repro_torch.kernels.recflash_sls import (
     recflash_sls_grouped as _grouped_kernel)
@@ -42,20 +43,25 @@ def recflash_sls(hot, cold, indices, block_b: int = 8):
 
 
 def recflash_sls_grouped(tables, hot_sizes, indices, rank_of=None,
-                         desc=None):
+                         desc=None, lookups=None):
     """Two-tier SLS of all tables in one launch: stored tables split at
     ``hot_sizes``, indices (B, n_tables, L) int32 logical ids translated by
     ``rank_of`` (or ranks) -> (B, n_tables, D) bag sums in the tables'
-    dtype, added in float32.
+    dtype, added in float32. With ``lookups``, one bag length a table, the
+    indices are ragged: (B, sum(lookups)), table t's ids in its own columns
+    (``kernels.recflash_sls``).
 
     An id is clamped into [0, len(rank_of[t])) and a rank into [0, V_t), on
     both devices. The reference forward's ``jnp.take`` fills instead: -1
     reads the row of id V-1, and an id at or past V gives NaN.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        if lookups is not None:
+            return RecFlashSLSRagged.apply(hot_sizes, indices, rank_of, desc,
+                                           tuple(lookups), *tables)
         return RecFlashSLSGrouped.apply(hot_sizes, indices, rank_of, desc,
                                         *tables)
-    return _grouped_kernel(tables, hot_sizes, indices, rank_of, desc)
+    return _grouped_kernel(tables, hot_sizes, indices, rank_of, desc, lookups)
 
 
 def dot_interaction(z, block_b: int = 64):

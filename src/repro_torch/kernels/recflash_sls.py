@@ -26,16 +26,26 @@ Both entries add each bag in float32 in lookup order and return it in the
 tables' dtype (float32 or bfloat16). An id out of range is clamped into
 range on both devices (see ``recflash_sls_grouped``).
 
-``RecFlashSLSGrouped`` gives the grouped entry a gradient for each stored
-table. The TPU kernel has none (the reference differentiates its plain
-``jnp.take`` bags), so the backward is plain PyTorch on both devices:
-``recflash_sls_grouped_backward``.
+The grouped entry takes every table's bags at one length, indices (B,
+n_tables, L), or with ``lookups`` one length a table (ragged bags, as
+DLRM-DCNv2's): indices (B, sum(lookups)), table t's ids in its own columns
+``[off_t, off_t + lookups[t])``, ``off_t`` the sum of the lengths before it.
+The lengths and offsets go to the kernel in its launch's arguments (a
+CUDA graph captures them), so a ragged call copies nothing to the card and
+builds no descriptor.
+
+``RecFlashSLSGrouped`` (and ``RecFlashSLSRagged``, over ragged bags) gives
+the grouped entry a gradient for each stored table. The TPU kernel has none
+(the reference differentiates its plain ``jnp.take`` bags), so the backward
+is plain PyTorch on both devices: ``recflash_sls_grouped_backward``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import itertools
 
 import torch
 
@@ -44,10 +54,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import recflash_sls_grouped_ref, recflash_sls_ref
 
 # descs, hot, cold, hot_rows, rows, indices, s_b, s_t, s_l, out, batch,
-# n_tables, lookups, dim, dtype, vec, stream
+# n_tables, lookups, dim, dtype, vec, ragged, stream
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
-             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] + [ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 2)
+# the most tables a ragged launch takes (the kernel's kMaxRagged)
+MAX_RAGGED_TABLES = 128
 
 
 # what a wrapper raises for descriptors built from other tensors
@@ -126,16 +139,32 @@ def describe(tables, hot_sizes, rank_of=None) -> TableDescs:
                               [p for r in rows for p in r[:2]]))
 
 
+@functools.lru_cache(maxsize=64)
+def _ragged_arg(lookups: tuple) -> ctypes.Array:
+    """The launcher's ``ragged`` argument: the lengths, then each table's
+    first column (kept alive by the cache)."""
+    vals = list(lookups) + [0, *itertools.accumulate(lookups)][:-1]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
 def _launch(descs: int, one: tuple[int, int, int, int],
             indices: torch.Tensor, out: torch.Tensor, dim: int,
-            dtype: torch.dtype, vec: bool) -> None:
-    """Launch on the current stream; ``indices`` is (B, n_tables, L)."""
-    b, n_t, n_lk = indices.shape
+            dtype: torch.dtype, vec: bool, lookups: tuple | None = None
+            ) -> None:
+    """Launch on the current stream; ``indices`` is (B, n_tables, L), or
+    (B, sum(lookups)) for ragged ``lookups``."""
+    if lookups is None:
+        b, n_t, n_lk = indices.shape
+        strides, ragged = indices.stride(), None
+    else:
+        b, n_t, n_lk = indices.shape[0], len(lookups), max(lookups)
+        strides = (indices.stride(0), 0, indices.stride(1))
+        ragged = ctypes.addressof(_ragged_arg(lookups))
     fn = _build.function("recflash_sls", "recflash_sls_launch", _ARGTYPES)
     with torch.cuda.device(out.device):
-        err = fn(descs, *one, indices.data_ptr(), *indices.stride(),
+        err = fn(descs, *one, indices.data_ptr(), *strides,
                  out.data_ptr(), b, n_t, n_lk, dim, _build.DTYPE_CODES[dtype],
-                 int(vec), torch.cuda.current_stream().cuda_stream)
+                 int(vec), ragged, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"recflash_sls kernel launch failed: CUDA error "
                            f"{err}")
@@ -191,18 +220,37 @@ def recflash_sls(hot: torch.Tensor, cold: torch.Tensor,
     return out
 
 
+def _check_ragged(lookups, n_tables: int, indices: torch.Tensor) -> tuple:
+    """``lookups`` as a tuple of ints, checked against the tables and the
+    (B, sum(lookups)) int32 ``indices``."""
+    lookups = tuple(int(n) for n in lookups)
+    if len(lookups) != n_tables or min(lookups) < 1:
+        raise ValueError(f"need a bag length of at least 1 for each of the "
+                         f"{n_tables} tables, got {lookups}")
+    if n_tables > MAX_RAGGED_TABLES:
+        raise ValueError(f"a ragged launch takes at most "
+                         f"{MAX_RAGGED_TABLES} tables, got {n_tables}")
+    if (indices.dim() != 2 or indices.dtype != torch.int32
+            or indices.shape[1] != sum(lookups)):
+        raise TypeError(f"ragged indices must be (B, {sum(lookups)}) int32, "
+                        f"got {tuple(indices.shape)} {indices.dtype}")
+    return lookups
+
+
 def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
-                         rank_of=None,
-                         desc: TableDescs | None = None) -> torch.Tensor:
+                         rank_of=None, desc: TableDescs | None = None,
+                         lookups=None) -> torch.Tensor:
     """Two-tier SLS of every table of a batch in one launch.
 
     ``tables`` are the stored (rank-ordered) (V_t, D) tables, each split at
     its ``hot_sizes`` entry into the hot and cold tiers; ``indices`` (B,
     n_tables, L) int32 logical ids, read with their strides, translated
     through ``rank_of[t]`` inside the kernel (ranks when ``rank_of`` is
-    None). ``desc`` are the tables' descriptors from ``describe``; they are
-    checked against the arguments (pointers, shapes, hot sizes), and built
-    for this call when None.
+    None). With ``lookups``, one bag length (at least 1) a table, the
+    indices are ragged instead: (B, sum(lookups)), table t's ids in its own
+    columns (module docstring). ``desc`` are the tables' descriptors from
+    ``describe``; they are checked against the arguments (pointers, shapes,
+    hot sizes), and built for this call when None.
     Returns (B, n_tables, D) in the tables' dtype, each bag added in
     float32 in lookup order and rounded once.
 
@@ -217,47 +265,53 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     elif _key(tables, hot_sizes, rank_of) != desc.key:
         raise ValueError(STALE_DESCRIPTORS)
     dev = tables[0].device
-    if (indices.dim() != 3 or indices.dtype != torch.int32
+    if lookups is not None:
+        lookups = _check_ragged(lookups, len(tables), indices)
+    elif (indices.dim() != 3 or indices.dtype != torch.int32
             or indices.shape[1] != len(tables)):
         raise TypeError(f"indices must be (B, {len(tables)}, L) int32, got "
                         f"{tuple(indices.shape)} {indices.dtype}")
     if indices.device != dev:
         raise ValueError("tables and indices must be on one device")
     if dev.type in ("cpu", "meta"):
-        return recflash_sls_grouped_ref(tables, hot_sizes, indices, rank_of)
+        return recflash_sls_grouped_ref(tables, hot_sizes, indices, rank_of,
+                                        lookups)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    b, n_t, _ = indices.shape
+    b, n_t = indices.shape[0], len(tables)
     d, dtype = tables[0].shape[1], tables[0].dtype
     out = torch.empty((b, n_t, d), dtype=dtype, device=dev)
     _launch(desc.tensor.data_ptr(), (0, 0, 0, 0), indices, out, d, dtype,
-            desc.vec)
+            desc.vec, lookups)
     if not torch.cuda.is_current_stream_capturing():
         recflash_sls_grouped.launches += 1
     return out
 
 
 def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
-                                  rank_of=None, needs=None) -> list:
+                                  rank_of=None, needs=None,
+                                  lookups=None) -> list:
     """Gradient of the grouped SLS with respect to each stored table.
 
     ``grad`` (B, n_tables, D) is the gradient of the bags; ``n_rows`` the
-    stored tables' row counts; ``indices`` and ``rank_of`` the forward's,
-    clamped as the forward clamps them. Returns per table a dense (V_t, D)
-    tensor, accumulated in float32 (float64 for a float64 ``grad``): zeros,
-    then each bag's gradient added at the rank of each of its lookups
+    stored tables' row counts; ``indices``, ``rank_of`` and ``lookups`` the
+    forward's (a ragged layout where ``lookups`` is given), clamped as the
+    forward clamps them. Returns per table a dense (V_t, D) tensor,
+    accumulated in float32 (float64 for a float64 ``grad``): zeros, then
+    each bag's gradient added at the rank of each of its lookups
     (``index_add_``), which is the dense gradient ``jax.grad`` gives through
     ``jnp.take``. A table whose ``needs`` entry is False gets None.
     """
-    b, _, n_lk = indices.shape
-    d = grad.shape[2]
+    b, d = indices.shape[0], grad.shape[2]
+    cols = (indices.unbind(1) if lookups is None
+            else indices.split(tuple(lookups), dim=1))
     grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
     out = []
-    for t, v in enumerate(n_rows):
+    for t, (v, idx) in enumerate(zip(n_rows, cols, strict=True)):
         if needs is not None and not needs[t]:
             out.append(None)
             continue
-        idx = indices[:, t, :]
+        n_lk = idx.shape[1]
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
         g = torch.zeros((v, d), dtype=grad.dtype, device=grad.device)
@@ -265,6 +319,26 @@ def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
                      grad[:, t, None, :].expand(b, n_lk, d).reshape(-1, d))
         out.append(g)
     return out
+
+
+def _grouped_forward(ctx, hot_sizes, indices, rank_of, desc, lookups,
+                     tables) -> torch.Tensor:
+    ctx.save_for_backward(indices)
+    ctx.rank_of, ctx.lookups = rank_of, lookups
+    ctx.meta = [(t.shape[0], t.dtype) for t in tables]
+    return recflash_sls_grouped(list(tables), hot_sizes, indices, rank_of,
+                                desc, lookups)
+
+
+def _table_grads(ctx, grad, n_args: int) -> list:
+    """Each stored table's gradient, in its dtype; the first ``n_args``
+    inputs are not tensors that take one."""
+    (indices,) = ctx.saved_tensors
+    grads = recflash_sls_grouped_backward(
+        grad, [v for v, _ in ctx.meta], indices, ctx.rank_of,
+        ctx.needs_input_grad[n_args:], ctx.lookups)
+    return [g if g is None else g.to(dt)
+            for g, (_, dt) in zip(grads, ctx.meta, strict=True)]
 
 
 class RecFlashSLSGrouped(torch.autograd.Function):
@@ -279,21 +353,27 @@ class RecFlashSLSGrouped(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hot_sizes, indices, rank_of, desc, *tables):
-        ctx.save_for_backward(indices)
-        ctx.rank_of = rank_of
-        ctx.meta = [(t.shape[0], t.dtype) for t in tables]
-        return recflash_sls_grouped(list(tables), hot_sizes, indices, rank_of,
-                                    desc)
+        return _grouped_forward(ctx, hot_sizes, indices, rank_of, desc, None,
+                                tables)
 
     @staticmethod
     def backward(ctx, grad):
-        (indices,) = ctx.saved_tensors
-        grads = recflash_sls_grouped_backward(
-            grad, [v for v, _ in ctx.meta], indices, ctx.rank_of,
-            ctx.needs_input_grad[4:])
-        return (None, None, None, None,
-                *[g if g is None else g.to(dt)
-                  for g, (_, dt) in zip(grads, ctx.meta, strict=True)])
+        return (None,) * 4 + tuple(_table_grads(ctx, grad, 4))
+
+
+class RecFlashSLSRagged(torch.autograd.Function):
+    """``RecFlashSLSGrouped`` over ragged bags:
+    ``apply(hot_sizes, indices, rank_of, desc, lookups, *tables)``, indices
+    (B, sum(lookups)) as ``recflash_sls_grouped`` takes them."""
+
+    @staticmethod
+    def forward(ctx, hot_sizes, indices, rank_of, desc, lookups, *tables):
+        return _grouped_forward(ctx, hot_sizes, indices, rank_of, desc,
+                                lookups, tables)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) * 5 + tuple(_table_grads(ctx, grad, 5))
 
 
 recflash_sls.launches = 0           # launches run since the last reset

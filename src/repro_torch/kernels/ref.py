@@ -55,30 +55,42 @@ def recflash_sls_ref(hot: torch.Tensor, cold: torch.Tensor,
 
 
 def recflash_sls_grouped_ref(tables, hot_sizes, indices: torch.Tensor,
-                             rank_of=None) -> torch.Tensor:
+                             rank_of=None, lookups=None) -> torch.Tensor:
     """Two-tier SLS of every table of a batch: ``tables`` are the stored
     (rank-ordered) tables, each split at its ``hot_sizes`` entry; ``indices``
     (B, n_tables, L) are logical ids translated through ``rank_of[t]`` (the
     paper's hash table), or ranks when ``rank_of`` is None; an id is clamped
-    into [0, len(rank_of[t])) and a rank into [0, V_t). Returns
-    (B, n_tables, D) in the tables' dtype, every table's bags added in
-    float32 in one ``sum_in_order`` (L launches, not n_tables * L). The two
-    tiers are the stored table's two slices, so the rows are read from it.
+    into [0, len(rank_of[t])) and a rank into [0, V_t). With ``lookups``,
+    one bag length a table, the indices are ragged: (B, sum(lookups)), table
+    t's ids in columns ``[off_t, off_t + lookups[t])``, ``off_t`` the sum of
+    the lengths before it. Returns (B, n_tables, D) in the tables' dtype.
+    Uniform bags are added in float32 in one ``sum_in_order`` over every
+    table (L launches, not n_tables * L); ragged bags in one
+    ``sum_in_order`` a table. The two tiers are the stored table's two
+    slices, so the rows are read from it.
     Where the table wants a gradient the table is widened before the
     gather, so that its gradient adds up in float32 (as the kernel's
     Function's does); otherwise only the gathered rows are widened (a
     dlrm-mlperf table is 10 GB in bf16, 20 GB widened)."""
     if len(hot_sizes) != len(tables):
         raise ValueError("need one hot size per table")
+    if lookups is not None and (len(lookups) != len(tables)
+                                or indices.shape[1] != sum(lookups)):
+        raise ValueError(f"ragged indices {tuple(indices.shape)} do not hold "
+                         f"the bags {tuple(lookups)} of {len(tables)} tables")
+    cols = (indices.unbind(1) if lookups is None
+            else indices.split(tuple(lookups), dim=1))
     rows = []
-    for t, stored in enumerate(tables):
-        idx = indices[:, t, :]
+    for t, (stored, idx) in enumerate(zip(tables, cols, strict=True)):
         if rank_of is not None:
             idx = lookup(rank_of[t], idx)
         if torch.is_grad_enabled() and stored.requires_grad:
             rows.append(lookup(_widen(stored), idx))
         else:
             rows.append(_widen(lookup(stored, idx)))
+    if lookups is not None:
+        return torch.stack([sum_in_order(r) for r in rows],
+                           dim=1).to(tables[0].dtype)
     return sum_in_order(torch.stack(rows, dim=1)).to(tables[0].dtype)
 
 

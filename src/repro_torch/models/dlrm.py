@@ -46,6 +46,16 @@ sharded`` (plain PyTorch gathers and NCCL or gloo collectives), one table
 at a time as the reference does; the interaction is still one fused
 launch on the rank's rows.
 
+MLPerf's DLRM-DCNv2 (``DCNConfig``; TorchRec's ``DLRM_DCN``, arXiv:
+2008.13535) runs through the same entry points. Its bags are ragged, one
+length a table (``lookups`` a tuple): the indices are then (B,
+sum(lookups)), table t's ids in its own columns, and the one grouped SLS
+launch reads each table's length and first column from its arguments.
+Its interaction ``"dcn"`` is a low-rank cross network over x0 =
+[bottom_out; bags] flattened, ``x_{l+1} = x0 * (x_l @ v_l @ w_l + b_l) +
+x_l`` a layer (``cross_net``), whose output feeds the top MLP. The mesh
+route and ``retrieval_score`` do not take ragged bags (they raise).
+
 A small inference batch on the card replays a CUDA graph of the forward
 instead of dispatching its ~19 launches from Python (``eager_reason``
 says which calls; the others run the eager forward unchanged). The graph
@@ -60,9 +70,9 @@ which the next replay overwrites. A bucket's first call runs eagerly,
 returns that result, then captures the graph; a capture that fails
 raises. The graphs live in the ``GraphCache`` that ``add_remap`` puts in
 the dict it returns, so they die with the parameters; they are bound to
-the descriptors, the MLP tensors' pointers, shapes and dtypes and the
-TF32 setting they were captured with, and a call that finds any of these
-replaced drops them and captures anew. The descriptors' own key (the
+the descriptors, the MLP and cross tensors' pointers, shapes and dtypes
+and the TF32 setting they were captured with, and a call that finds any of
+these replaced drops them and captures anew. The descriptors' own key (the
 tables' and ``rank_of``'s pointers and shapes, the hot sizes) is checked
 once, when the graphs are bound; later calls check the tables' and
 ``rank_of``'s data pointers and the hot sizes against it, so a table, hot
@@ -96,7 +106,7 @@ from repro_torch.embedding.sharded import (sharded_embedding_bag,
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.recflash_sls import STALE_DESCRIPTORS, _key, describe
 from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
-                                       mlp_init, uniform_init)
+                                       mlp_init, normal_init, uniform_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,21 +116,48 @@ class DLRMConfig:
     n_dense: int
     embed_dim: int
     n_rows: tuple           # per-table vocab sizes (len == n_tables)
-    lookups: int            # multi-hot width per table
+    lookups: int | tuple    # multi-hot width per table, or one a table
     bot_mlp: tuple          # hidden sizes; input = n_dense, output = embed_dim
     top_mlp: tuple          # hidden sizes; output = 1
     interaction: str = "dot"
+
+    def __post_init__(self):
+        if isinstance(self.lookups, list):
+            object.__setattr__(self, "lookups", tuple(self.lookups))
+        if isinstance(self.lookups, tuple) and (
+                len(self.lookups) != self.n_tables
+                or min(self.lookups, default=0) < 1):
+            raise ValueError(f"{self.name}: need a bag length of at least 1 "
+                             f"for each of the {self.n_tables} tables, got "
+                             f"{self.lookups}")
+        if self.interaction == "dcn" and not isinstance(self, DCNConfig):
+            raise ValueError(f"{self.name}: the dcn interaction needs its "
+                             f"cross layers and rank (DCNConfig)")
 
     @property
     def n_vectors(self) -> int:
         return self.n_tables + 1
 
     @property
+    def bag_lengths(self) -> tuple | None:
+        """Each table's bag length where they differ by table (ragged
+        indices, (B, sum(lookups))), or None (indices (B, n_tables,
+        lookups))."""
+        return self.lookups if isinstance(self.lookups, tuple) else None
+
+    @property
+    def n_lookups(self) -> int:
+        """Lookups a sample, over every table."""
+        if self.bag_lengths is not None:
+            return sum(self.bag_lengths)
+        return self.n_tables * self.lookups
+
+    @property
     def top_in(self) -> int:
         if self.interaction == "dot":
             n = self.n_vectors
             return self.embed_dim + n * (n - 1) // 2
-        return self.n_vectors * self.embed_dim    # concat interaction
+        return self.n_vectors * self.embed_dim    # concat, dcn interaction
 
     def flops_per_sample(self) -> int:
         """MODEL_FLOPS estimate (fwd): 2*MACs of MLPs + interaction + SLS."""
@@ -129,9 +166,38 @@ class DLRMConfig:
         f += sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:], strict=True))
         tsizes = (self.top_in,) + tuple(self.top_mlp) + (1,)
         f += sum(2 * a * b for a, b in zip(tsizes[:-1], tsizes[1:], strict=True))
-        f += 2 * self.n_vectors * self.n_vectors * self.embed_dim  # pairwise dot
-        f += 2 * self.n_tables * self.lookups * self.embed_dim     # SLS adds
+        f += self.interaction_flops()
+        f += 2 * self.n_lookups * self.embed_dim                  # SLS adds
         return f
+
+    def interaction_flops(self) -> int:
+        return 2 * self.n_vectors * self.n_vectors * self.embed_dim  # dots
+
+
+@dataclasses.dataclass(frozen=True)
+class DCNConfig(DLRMConfig):
+    """DLRM-DCN (TorchRec's ``DLRM_DCN``): the interaction a low-rank cross
+    network of ``dcn_layers`` layers of rank ``dcn_rank`` over the
+    concatenated [bottom_out; bags] (``top_in`` wide). A subclass, so that
+    ``DLRMConfig``'s fields stay the reference's."""
+
+    interaction: str = "dcn"
+    dcn_layers: int = 0
+    dcn_rank: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.interaction != "dcn" or self.dcn_layers < 1 \
+                or self.dcn_rank < 1:
+            raise ValueError(f"{self.name}: a DCNConfig has the dcn "
+                             f"interaction and at least one cross layer of "
+                             f"rank 1 or more")
+
+    def interaction_flops(self) -> int:
+        """Per cross layer: the two products (2 x top_in x rank multiply-adds
+        each) and the bias add, product with x0 and residual add."""
+        d = self.top_in
+        return self.dcn_layers * (4 * d * self.dcn_rank + 3 * d)
 
 
 def make_rmc(name: str, n_tables: int, dim: int, lookups: int,
@@ -163,18 +229,51 @@ def init(seed: int, cfg: DLRMConfig, dtype=torch.float32,
     if bot_sizes[-1] != cfg.embed_dim:
         bot_sizes = bot_sizes + (cfg.embed_dim,)
     top_sizes = (cfg.top_in,) + tuple(cfg.top_mlp) + (1,)
-    return {
+    params = {
         "tables": tables,
         "bot": mlp_init(gen, bot_sizes, dtype),
         "top": mlp_init(gen, top_sizes, dtype),
     }
+    if cfg.interaction == "dcn":
+        params["cross"] = cross_init(gen, cfg.top_in, cfg.dcn_rank,
+                                     cfg.dcn_layers, dtype)
+    return params
+
+
+def cross_init(gen: torch.Generator, width: int, rank: int, layers: int,
+               dtype=torch.float32) -> list:
+    """The low-rank cross layers as TorchRec's ``LowRankCrossNet``
+    initialises them: xavier-normal kernels (std sqrt(2 / (fan_in +
+    fan_out))), zero biases. Kept as ``x @ v @ w + b``: v (width, rank)
+    and w (rank, width), the transposes of its V and W kernels."""
+    std = math.sqrt(2.0 / (width + rank))
+    return [{"v": normal_init(gen, (width, rank), std, dtype),
+             "w": normal_init(gen, (rank, width), std, dtype),
+             "b": torch.zeros((width,), dtype=dtype, device=gen.device)}
+            for _ in range(layers)]
+
+
+def cross_net(layers, x0: torch.Tensor) -> torch.Tensor:
+    """The low-rank cross network over x0 (B, W): for each layer, x =
+    x0 * (x @ v @ w + b) + x, from x = x0; each product and add in the
+    dtype x0 and the weights promote to (``models.common.dense``'s rule)."""
+    x = x0
+    for layer in layers:
+        dt = torch.promote_types(x0.dtype, layer["v"].dtype)
+        x0, x = x0.to(dt), x.to(dt)
+        xv = x @ layer["v"].to(dt)
+        x = torch.addcmul(x, x0, torch.addmm(layer["b"].to(dt), xv,
+                                             layer["w"].to(dt)))
+    return x
 
 
 def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
-             plain: bool = False) -> torch.Tensor:
+             plain: bool = False, cross=None) -> torch.Tensor:
     """bottom_out (B,D), bags (B,T,D) -> top-MLP input, in the dtype the two
     promote to (the reference's concatenate). The dot interaction is one
-    fused-interaction launch: [bottom_out, upper-triangle dots]."""
+    fused-interaction launch: [bottom_out, upper-triangle dots]. ``"dcn"``
+    runs the cross network (``cross``, the params' cross layers) over the
+    concatenation."""
     dt = torch.promote_types(bottom_out.dtype, bags.dtype)
     bottom_out, bags = bottom_out.to(dt), bags.to(dt)
     if interaction == "dot":
@@ -182,7 +281,10 @@ def interact(bottom_out: torch.Tensor, bags: torch.Tensor, interaction: str,
             ops.dot_interaction_fused
         return fused(bottom_out, bags)                     # (B, D + nC2)
     z = torch.cat([bottom_out[:, None, :], bags], dim=1)          # (B,T+1,D)
-    return z.reshape(z.shape[0], -1)
+    z = z.reshape(z.shape[0], -1)
+    if interaction == "dcn":
+        return cross_net(cross, z)
+    return z
 
 
 def _bag(params, indices: torch.Tensor, t: int, mesh=None, axes=("data",),
@@ -226,11 +328,13 @@ def _bag(params, indices: torch.Tensor, t: int, mesh=None, axes=("data",),
     return ops.recflash_sls(stored[:hot], stored[hot:], idx, block_b=1)
 
 
-def bags(params, indices: torch.Tensor, plain: bool = False
-         ) -> torch.Tensor:
+def bags(params, indices: torch.Tensor, plain: bool = False,
+         lookups=None) -> torch.Tensor:
     """Every table's SLS in one grouped launch: indices (B, n_tables, L)
-    int32 logical ids -> (B, n_tables, D) in the tables' dtype, each bag
-    added in float32; an id out of range is clamped (module docstring).
+    int32 logical ids, or (B, sum(lookups)) for ragged ``lookups``
+    (``DLRMConfig.bag_lengths``) -> (B, n_tables, D) in the tables' dtype,
+    each bag added in float32; an id out of range is clamped (module
+    docstring).
 
     With remap enabled the kernel translates ids through each ``rank_of``
     and reads the descriptors ``add_remap`` built; tables without a remap
@@ -241,9 +345,16 @@ def bags(params, indices: torch.Tensor, plain: bool = False
            else [1] * len(params["tables"]))
     if plain:
         return ref.recflash_sls_grouped_ref(params["tables"], hot, indices,
-                                            rank_of)
+                                            rank_of, lookups)
     return ops.recflash_sls_grouped(params["tables"], hot, indices, rank_of,
-                                    params.get("sls_desc"))
+                                    params.get("sls_desc"), lookups)
+
+
+def _flat_only(cfg: DLRMConfig, what: str) -> None:
+    if cfg.bag_lengths is not None:
+        raise ValueError(f"{cfg.name}: {what} does not take the ragged "
+                         f"layout (a bag length a table, indices (B, "
+                         f"sum(lookups)))")
 
 
 def _constrain_hybrid(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -272,7 +383,7 @@ class GraphCache:
 
     def __init__(self):
         self.desc = None       # the SLS descriptors every graph reads
-        self.bound = None      # the MLP tensors and TF32 setting they read
+        self.bound = None      # the dense tensors and TF32 setting they read
         self.tables = None     # the data pointers and hot sizes they name
         self.graphs: dict = {}
         self.pool = None
@@ -295,9 +406,10 @@ def graph_bucket(rows: int) -> int:
     return 1 << (rows - 1).bit_length()
 
 
-def _mlp_tensors(params) -> list:
+def _dense_tensors(params) -> list:
+    """The MLPs' and the cross network's weights and biases."""
     return [t for layer in params["bot"] + params["top"]
-            for t in layer.values()]
+            + params.get("cross", []) for t in layer.values()]
 
 
 def eager_reason(params, batch, mesh=None, plain: bool = False
@@ -327,7 +439,7 @@ def eager_reason(params, batch, mesh=None, plain: bool = False
     if torch.is_grad_enabled() and (
             dense.requires_grad
             or any(t.requires_grad for t in params["tables"])
-            or any(t.requires_grad for t in _mlp_tensors(params))):
+            or any(t.requires_grad for t in _dense_tensors(params))):
         return "gradient"
     if not (dense.is_cuda and indices.is_cuda):
         return "device"
@@ -338,7 +450,7 @@ def _graphed(params, batch, cfg: DLRMConfig) -> torch.Tensor:
     """``forward``'s graph route: replay the bucket's graph, or run the
     call eagerly and capture it."""
     cache, desc = params[GRAPHS], params["sls_desc"]
-    mlps = _mlp_tensors(params)
+    mlps = _dense_tensors(params)
     bound = ([(t.data_ptr(), t.shape, t.dtype) for t in mlps],
              torch.backends.cuda.matmul.allow_tf32)
     tables, rank_of = params["tables"], params["rank_of"]
@@ -355,7 +467,7 @@ def _graphed(params, batch, cfg: DLRMConfig) -> torch.Tensor:
     dense, indices = batch["dense"], batch["indices"]
     rows = dense.shape[0]
     key = (graph_bucket(rows), dense.dtype, dense.shape[1:], indices.dtype,
-           indices.shape[1:], cfg.interaction)
+           indices.shape[1:], cfg.interaction, cfg.lookups)
     g = cache.graphs.get(key)
     if g is None:
         out = _eager(params, batch, cfg, None, None, False, False, False)
@@ -394,7 +506,8 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
             hybrid: bool = False, table_2d: bool = False,
             plain: bool = False) -> torch.Tensor:
     """batch: dense (B,n_dense) f32 (or the params' dtype), indices
-    (B,n_tables,lookups) int32 -> logits (B,).
+    (B,n_tables,lookups) int32, or (B, sum(lookups)) where the config's
+    bags are ragged (``DLRMConfig.bag_lengths``) -> logits (B,).
 
     An id outside [0, V) is clamped into it; the reference's forward gives
     row V-1 for -1 and NaN logits for an id at or past V (``jnp.take``'s
@@ -417,8 +530,12 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
 
     Under a torch profiler the call is the span ``obs.FORWARD``. On the
     eager route it holds ``obs.BOT_MLP``, ``obs.BAGS``, ``obs.INTERACT``
-    (the bags' cast to the interaction's dtype included) and
-    ``obs.TOP_MLP`` (``repro_torch.obs``); a replay has no child spans.
+    (the bags' cast to the interaction's dtype included; for ``"dcn"`` the
+    concatenation and the whole cross network) and ``obs.TOP_MLP``
+    (``repro_torch.obs``); a replay has no child spans. The graphs the
+    binding names include the cross network's tensors.
+
+    The mesh route (``mesh=``) does not take ragged bags: it raises.
     """
     with obs.span(obs.FORWARD):
         if eager_reason(params, batch, mesh, plain) is None:
@@ -430,6 +547,8 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
 def _eager(params, batch, cfg: DLRMConfig, mesh, axes, hybrid: bool,
            table_2d: bool, plain: bool) -> torch.Tensor:
     """``forward``'s eager route: each layer dispatched from Python."""
+    if mesh is not None:
+        _flat_only(cfg, "the mesh route")
     hybrid = hybrid and mesh is not None and axes is not None
     dense_in = batch["dense"]
     if hybrid:
@@ -438,14 +557,18 @@ def _eager(params, batch, cfg: DLRMConfig, mesh, axes, hybrid: bool,
         x = mlp(params["bot"], dense_in)
     with obs.span(obs.BAGS):
         if mesh is None:
-            all_bags = bags(params, batch["indices"], plain)
+            # ragged bags name their lengths; a uniform call is as it was
+            ragged = {} if cfg.bag_lengths is None else {
+                "lookups": cfg.bag_lengths}
+            all_bags = bags(params, batch["indices"], plain, **ragged)
         else:
             all_bags = torch.stack(
                 [_bag(params, batch["indices"][:, t, :], t, mesh, axes,
                       hybrid, table_2d=hybrid and table_2d)
                  for t in range(cfg.n_tables)], dim=1)
     with obs.span(obs.INTERACT):
-        feat = interact(x, all_bags, cfg.interaction, plain)
+        feat = interact(x, all_bags, cfg.interaction, plain,
+                        params.get("cross"))
     with obs.span(obs.TOP_MLP):
         return mlp(params["top"], feat)[:, 0]          # logits (B,)
 
@@ -495,8 +618,10 @@ def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
 
     Under a mesh the user's fields are sharded bags of replicated indices,
     one table at a time, and ``candidates`` are this rank's block over
-    ``axes``; returns this rank's block of the scores.
+    ``axes``; returns this rank's block of the scores. Ragged bags are not
+    taken: it raises.
     """
+    _flat_only(cfg, "retrieval_score")
     x = mlp(params["bot"], batch["dense"])                       # (1, D)
     if mesh is None:
         fixed = bags(params, batch["indices"], plain)[:, :-1]     # (1, T-1, D)
@@ -512,7 +637,8 @@ def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
     dt = torch.promote_types(x.dtype, cand.dtype)
     all_bags = torch.cat([fixed.to(dt).expand(n, -1, -1),
                           cand[:, None, :].to(dt)], dim=1)
-    feat = interact(x.expand(n, -1), all_bags, cfg.interaction, plain)
+    feat = interact(x.expand(n, -1), all_bags, cfg.interaction, plain,
+                    params.get("cross"))
     return mlp(params["top"], feat)[:, 0]                        # (N,)
 
 

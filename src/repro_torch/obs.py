@@ -20,6 +20,14 @@ interval in the trace, so no ids are kept. ``models.dlrm.forward`` opens
 ``FORWARD`` around each call and, inside it in this order on its eager
 route, ``BOT_MLP``, ``BAGS``, ``INTERACT`` and ``TOP_MLP``; a replay of its
 CUDA graph (a small inference batch) holds no child span.
+
+``INTERACT`` holds the interaction arch whole, with the bags' cast to its
+dtype: for ``"dot"`` the fused interaction kernel; for ``"dcn"`` (DLRM-
+DCNv2) the concatenation of the bottom MLP's output and the bags that
+forms x0 and every layer of the low-rank cross network (its two products,
+the bias add and the ``addcmul``). The bottom and top MLPs stay in their
+own spans, so a reader of ``BOT_MLP`` and ``TOP_MLP`` never counts the
+cross network.
 """
 
 from __future__ import annotations
