@@ -128,13 +128,21 @@ Phases, each of which fails the run when it fails:
    forward's graph replay at 64 rows against its eager call, bit for bit;
    the eager forward at ``DCN_BATCH`` against ``plain=True``; the ragged
    launch and the forward timed with CUDA events;
-15. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
+15. sls_probe: the grouped SLS at rmc2's shape (32 f32 tables of 1M x
+   64, 2000 hot rows each, batch 4096, 120 lookups) on ids whose ranks put
+   every lookup in one level of the cache (``tools/sls_probe.py``): one
+   hot rank a table, the first 64 ranks, all-distinct cold ranks, and the
+   bulk cells' Zipf traffic at K=0 and K=2; ms a launch beside its bound
+   (unique rows, ``rank_of`` entries, ids and bags at 3.35 TB/s) and the
+   rate at which it copies rows, where the head is served from and how
+   far each case stands from its bound;
+16. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
    subprocesses at once, over the cells the next two phases read
    (qwen3-1.7b's, deepseek-v3-671b's decode_32k, DIN's and BERT4Rec's):
    each cell's plan run on rank 0's blocks of meta tensors under a fake
    256-rank group, its per-rank flops, bytes, wire bytes, H100 roofline
    bound, peak and ``fits_hbm`` printed; any failed cell fails the run;
-16. recsys_mesh: DIN's and BERT4Rec's registry cells with their item
+17. recsys_mesh: DIN's and BERT4Rec's registry cells with their item
    tables row-sharded over ``model`` (masked lookups summed over it,
    BERT4Rec's tied output and cloze loss on the rank's vocab block):
    train_batch, serve_p99, serve_bulk and retrieval_cand through the
@@ -145,7 +153,7 @@ Phases, each of which fails the run when it fails:
    the 16 x 16 mesh on the card under the fake group, per-call time and
    peak memory beside the dry-run's counted peak; no launch of any
    kernel;
-17. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
+18. lm_blocks (last): rank 0's blocks of the 16 x 16 production mesh as
    real tensors on the card, at full width and depth, under the fake
    256-rank group this process starts (its collectives move nothing):
    qwen3-1.7b's train_4k, prefill_32k and decode_32k and
@@ -2282,6 +2290,26 @@ def phase_dcn(card: str, gen: torch.Generator) -> dict:
     return out
 
 
+# ------------------------------------------------------------ sls_probe --
+def phase_sls_probe(card: str) -> dict:
+    """The grouped SLS at rmc2's shape on ids that place every lookup in
+    one level of the cache (module docstring, phase 15). Returns the
+    probe's record a case."""
+    sys.path.insert(0, str(ROOT))
+    from tools import sls_probe
+    t0 = time.perf_counter()
+    recs = sls_probe.probe([ROOT], rounds=1)
+    for r in recs:
+        print(f"[sls_probe] {r['case']} on {card}: {r['ms'] * 1e3:.2f} us a "
+              f"launch (bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']}, {r['roofline_pct']:.2f}%), rows copied at "
+              f"{r['row_copies_tb_s']:.2f} TB/s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sls_probe] the phase took {time.perf_counter() - t0:.1f} s")
+    return {r["case"]: r for r in recs}
+
+
 # --------------------------------------------------------------- dryrun --
 DRYRUN_TIMEOUT_S = 900
 # the dry-run's cells the card phases read, on the 16 x 16 mesh: lm_blocks'
@@ -3910,6 +3938,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dcn = phase_dcn(card, gen)
     mark("dcn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_sls_probe(card)
+    mark("sls_probe")
     gc.collect()
     torch.cuda.empty_cache()
     lm_out = phase_lm(card)

@@ -35,20 +35,25 @@
 //   Each table's L_t and col_t ride in the launch's arguments (a Ragged
 //   struct passed by value, so a CUDA graph captures them and no copy to
 //   the card is needed), read by the instance whose layout is Ragged. A
-//   uniform launch runs the instance whose layout is the empty Uniform,
-//   whose code is the kernel's as it was before ragged bags. Shared memory
-//   and the ring are sized by the longest bag, and a bag of L_t ids waits
-//   for L_t copies: the block lives as long as its longest bag.
-// - A group of G threads (a power of two, at most 32; 16 for D=64 f32)
-//   serves one bag, and a block of 128 threads serves 128/G bags, so a
-//   dlrm-rm2 batch (1664 bags) is 208 blocks over the 132 SMs.
+//   uniform launch runs the instance whose layout is the empty Uniform.
+//   Shared memory is sized by the longest bag; a block's bags are one
+//   table's, so they are all L_t long (below).
+// - Table-major blocks: the grid is (ceil(B / per_block), n_tables), so a
+//   block's bags are per_block consecutive samples of one table, and share
+//   its descriptor, its bag length and its head. Blocks start in index
+//   order, x first, so the SMs work through the tables one at a time: at
+//   rmc2's shape (B=4096, 8 bags a block) a table is 512 blocks, about 4
+//   on each SM, before the next table starts. A ragged table's blocks hold
+//   bags of one length, so no block waits for a longer bag of another
+//   table. A group of G threads (a power of two, at most 32; 16 for D=64
+//   f32 and for D=128 bf16) serves one bag, 128/G bags a block.
 // - Three dependent round trips per bag: the group reads the bag's L ids
 //   (8 per thread per round, all issued before any is used), then their
 //   rank_of entries, and writes the clamped ranks to shared memory; after
 //   one barrier every row address is known.
-// - Rows travel by 16-byte cp.async copies into a per-thread ring of 32
+// - Rows travel by 16-byte cp.async copies into a per-thread ring of 8
 //   slots in shared memory (Hopper's form of the TPU kernel's row DMA
-//   double buffer): a thread keeps up to 32 row reads in flight, waits for
+//   double buffer): a thread keeps up to 8 row reads in flight, waits for
 //   the oldest, adds it and refills its slot. Each thread copies and reads
 //   only its own slots, so the ring needs no barrier. (Consuming 4 lookups
 //   per wait, to expose one shared-memory latency per 4, measured the same
@@ -60,11 +65,27 @@
 // - Where D or a table pointer does not allow 16-byte copies (D=18, say),
 //   each thread loads single elements straight into registers, 16 lookups
 //   at a time, from the ranks already in shared memory.
-// - The hot tier is served from L2, not staged in shared memory: a dlrm-rm2
-//   prefix (2000 x 64 x 4 B = 500 KB) exceeds the 227 KB a block can have,
-//   while the 26 prefixes (12.7 MB) fit the 50 MB L2, which holds the hot
-//   rows after their first touch. This deviates from the VMEM-resident hot
-//   tier of DESIGN.md §2.2.
+// - The hot tier is served from each SM's L1 where it can be: a row copy
+//   whose rank is below the table's hot size is a cp.async.ca, which
+//   allocates the row in L1; a cold copy stays cp.async.cg (L2 only), so
+//   that cold rows do not evict the head. The choice is made per lookup,
+//   from the rank, with no setting. Since the SMs serve one table at a
+//   time, the most frequent ranks of that table are read again from L1
+//   (with Zipf 1.23 over 1M ids, a table's first 64 ranks, 16 KB at D=64
+//   f32, take ~69% of its lookups); hot rows that L1 does not hold come
+//   from L2, which holds every table's prefix (32 x 2000 x 256 B = 16 MB
+//   for rmc2) after its first touch. To leave L1 room, the vector path
+//   asks for the shared memory that fills an SM's 2048 threads with
+//   blocks, at most 132 KB (cudaFuncAttributePreferredSharedMemoryCarveout,
+//   set by the launcher), and its ring is 8 slots deep: at rmc2's shape a
+//   block takes 21 KB, an SM holds 6 (768 threads, 96 KB of copies in
+//   flight) and keeps ~124 KB of L1. Measured over rings of 4 to 32 slots
+//   and 64 to 228 KB of shared memory (PERF.md §6): 32 slots leave 28 KB of
+//   L1 at 3 blocks an SM; a smaller carveout starves the threads.
+//   This is DESIGN.md §2.2's VMEM-resident hot tier as a cache: the
+//   hardware keeps the rows read most, in place of a prefix pinned for the
+//   grid (the prefix, 500 KB a table, exceeds the 227 KB a block can
+//   have), and a cold row never displaces a hot one from L1.
 // - An id outside [0, n_ids) is clamped into that range before the rank_of
 //   translation, and a rank outside [0, rows) into that one, so that a bad
 //   index cannot read outside a table: -1 reads the first row, an id at or
@@ -95,7 +116,11 @@ static_assert(sizeof(TableDesc) == 48, "TableDesc must be six 8-byte words");
 namespace {
 
 constexpr int kThreads = 128;        // threads per block
-constexpr int kStages = 32;          // ring slots per thread (vector path)
+constexpr int kStages = 8;           // ring slots per thread (vector path)
+constexpr int kSmemPerSm = 233472;   // 228 KB: an SM's most shared memory
+constexpr int kSmemCap = 135168;     // 132 KB: the most the kernel asks for
+constexpr int kSmemReserved = 1024;  // shared memory the system takes a block
+constexpr int kBlocksPerSm = 16;     // blocks an SM's 2048 threads hold
 constexpr int kAhead = 16;           // lookups per register batch (scalar)
 constexpr int kIdx = 8;              // lookups a thread translates per round
 constexpr int kMaxSmem = 232448;     // 227 KB, the most a block can have
@@ -168,11 +193,20 @@ __device__ __forceinline__ void add_vec(const uint4& v, float* acc) {
   add_word(v.w, acc + 3 * kPerWord, T());
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// A 16-byte copy that allocates in L1 (.ca) where `keep` is set, else in L2
+// only (.cg); predicated, so a warp whose two bags differ does not branch.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool keep) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p cp.async.ca.shared.global [%0], [%1], 16;\n"
+      "@!p cp.async.cg.shared.global [%0], [%1], 16;\n"
+      "}\n" ::"r"(s),
+      "l"(gmem), "r"(static_cast<int>(keep))
+      : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -192,6 +226,8 @@ __device__ __forceinline__ const T* row_of(const TableDesc& d, int32_t rank,
 
 // descs: the group's descriptors, or nullptr for the one table `one`.
 // lookups: every bag's length, or in a ragged launch the longest bag's.
+// Block (x, t) serves samples [x * per_block, (x + 1) * per_block) of table
+// t; bag (b, t) writes out row b * n_tables + t.
 // Shared memory: the ranks of the block's bags (lookups int32 each, padded
 // to 16 bytes), then, on the vector path, the ring: slot s of thread lane
 // of bag g is uint4 number (g * slots + s) * group + lane.
@@ -199,18 +235,16 @@ template <typename T, bool kVec, typename Layout>
 __global__ void __launch_bounds__(kThreads)
     sls_kernel(const TableDesc* __restrict__ descs, TableDesc one,
                const int32_t* __restrict__ indices, long long s_b,
-               long long s_t, long long s_l, T* __restrict__ out,
-               int n_bags, int n_tables, int max_lookups, int dim, int group,
-               int slots, int ranks_bytes,
-               __grid_constant__ const Layout layout) {
+               long long s_t, long long s_l, T* __restrict__ out, int batch,
+               int n_tables, int max_lookups, int dim, int group, int slots,
+               int ranks_bytes, __grid_constant__ const Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int per_block = blockDim.x / group;
   const int g = threadIdx.x / group;
   const int lane = threadIdx.x % group;
-  const int bag = blockIdx.x * per_block + g;
-  const bool live = bag < n_bags;
-  const int b = bag / n_tables;
-  const int t = bag % n_tables;
+  const int t = blockIdx.y;
+  const int b = blockIdx.x * per_block + g;
+  const bool live = b < batch;
   int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * max_lookups;
   TableDesc d = one;
   int lookups = max_lookups;
@@ -245,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (!live) return;
-  T* dst = out + static_cast<long long>(bag) * dim;
+  T* dst = out + (static_cast<long long>(b) * n_tables + t) * dim;
   if constexpr (kVec) {
     constexpr int kE = 16 / sizeof(T);
     uint4* ring = reinterpret_cast<uint4*>(smem + ranks_bytes) +
@@ -258,7 +292,11 @@ __global__ void __launch_bounds__(kThreads)
       // one commit group per lookup: group l holds lookup l's copy
 #pragma unroll
       for (int s = 0; s < kStages; ++s) {
-        if (s < lookups) cp_async16(ring + s * group, row_of<T>(d, ranks[s], dim) + col);
+        if (s < lookups) {
+          const int32_t r = ranks[s];
+          cp_async16(ring + s * group, row_of<T>(d, r, dim) + col,
+                     r < d.hot_rows);
+        }
         cp_async_commit();
       }
       for (int l = 0; l < lookups; ++l) {
@@ -266,7 +304,10 @@ __global__ void __launch_bounds__(kThreads)
         uint4* slot = ring + (l % kStages) * group;
         add_vec<T>(*slot, acc);
         const int next = l + kStages;
-        if (next < lookups) cp_async16(slot, row_of<T>(d, ranks[next], dim) + col);
+        if (next < lookups) {
+          const int32_t r = ranks[next];
+          cp_async16(slot, row_of<T>(d, r, dim) + col, r < d.hot_rows);
+        }
         cp_async_commit();
       }
       store_vec(dst + col, acc);
@@ -299,29 +340,49 @@ int launch(const TableDesc* descs, const TableDesc& one,
   int group = 1;
   while (group < units && group < 32) group <<= 1;
   const int per_block = kThreads / group;
-  const int n_bags = batch * n_tables;
   const int slots = lookups < kStages ? lookups : kStages;
   const long long ranks_bytes =
       (static_cast<long long>(per_block) * lookups * 4 + 15) / 16 * 16;
   const long long smem =
       ranks_bytes +
       (kVec ? static_cast<long long>(per_block) * slots * group * 16 : 0);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_bags == 0) return 0;
-  // Above 48 KB a kernel needs this attribute, set once per device.
-  static unsigned long long attr_set = 0;
+  if (smem > kMaxSmem || n_tables > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0 || n_tables == 0) return 0;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev < 64 && !(attr_set >> dev & 1ull)) {
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  // Above 48 KB a kernel needs this attribute, set once per device.
+  static unsigned long long attr_set = 0;
+  if (!(attr_set >> dev & 1ull)) {
     cudaError_t e = cudaFuncSetAttribute(
         sls_kernel<T, kVec, Layout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set |= 1ull << dev;
   }
-  const dim3 grid((n_bags + per_block - 1) / per_block);
+  // Hot copies land in L1: the vector path asks for the shared memory
+  // that fills an SM's threads with blocks, at most kSmemCap, and the rest
+  // of the SM's 256 KB is L1. Set when it changes.
+  if constexpr (kVec) {
+    static int carveout[64] = {};   // percent + 1; 0: never set
+    const long long fill =
+        static_cast<long long>(kBlocksPerSm) * (smem + kSmemReserved);
+    const long long want = fill < kSmemCap ? fill : kSmemCap;
+    const int pct = static_cast<int>(
+        (want * 100 + kSmemPerSm - 1) / kSmemPerSm);
+    if (carveout[dev] != pct + 1) {
+      cudaError_t e = cudaFuncSetAttribute(
+          sls_kernel<T, kVec, Layout>,
+          cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      carveout[dev] = pct + 1;
+    }
+  }
+  const dim3 grid((batch + per_block - 1) / per_block, n_tables);
   sls_kernel<T, kVec, Layout><<<grid, per_block * group, smem, stream>>>(
-      descs, one, indices, s_b, s_t, s_l, out, n_bags, n_tables, lookups, dim,
+      descs, one, indices, s_b, s_t, s_l, out, batch, n_tables, lookups, dim,
       group, slots, static_cast<int>(ranks_bytes), layout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -375,8 +436,8 @@ int launch_layout(const int* ragged, int vec, const TableDesc* descs,
 // sum of the lengths), read with strides s_b and s_l (s_t unused), and
 // descs must be given. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take (a bad dtype,
-// more than 227 KB of shared memory, a bad ragged layout or more than 128
-// tables in one).
+// more than 227 KB of shared memory, a bad ragged layout, more than 128
+// tables in a ragged launch or more than 65535 in any).
 extern "C" int recflash_sls_launch(const void* descs, const void* hot,
                                    const void* cold, long long hot_rows,
                                    long long rows, const void* indices,

@@ -13,7 +13,8 @@ serves two entries:
   kernel's own contract.
 
 The source's note says what bounds the kernel and how it serves the hot
-tier (from L2, not shared memory, at the dlrm-rm2 prefix size). On a CPU
+tier (blocks of one table each, hot row copies cached in each SM's L1,
+the rest of the prefix in L2; not staged in shared memory). On a CPU
 tensor a wrapper runs the plain version (``kernels.ref``), and on a meta
 tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA tensor
 it launches the kernel on the current stream or raises.

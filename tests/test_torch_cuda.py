@@ -57,6 +57,15 @@ class TestRecFlashSLSOnCard:
         torch.testing.assert_close(recflash_sls(hot, cold, idx),
                                    ops.sls_ref(hot, cold, idx), **TOL)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b", [1, 9, 4096])
+    def test_bit_equal_to_plain(self, gen, dtype, b):
+        hot, cold, idx = _sls_inputs(gen, 64, 3000, 64, b, 40, dtype)
+        idx[0, :5] = torch.tensor([-1, 2999, 3000, 2**31 - 1, 63],
+                                  dtype=torch.int32)
+        assert torch.equal(recflash_sls(hot, cold, idx, block_b=1),
+                           ops.sls_ref(hot, cold, idx))
+
     def test_all_hot_all_cold_and_unaligned(self, gen):
         hot, cold, _ = _sls_inputs(gen, 32, 64, 8, 8, 4)
         for fill in (0, 40):
@@ -103,6 +112,25 @@ def _group(gen, rows, d, hot_sizes, b, lk, dtype=torch.float32,
     return tables, (rank_of if remap else None), idx
 
 
+# ragged bags of 1 to 100 ids (DLRM-DCNv2's range) over four tables
+RAGGED_ROWS, RAGGED_HOT, RAGGED_LOOKUPS = ((64, 100, 130, 3000),
+                                          (1, 17, 129, 30), (1, 100, 7, 33))
+
+
+def _ragged(gen, b, dtype):
+    """Stored tables, their rank_of, (B, sum(lookups)) int32 ids drawn over
+    each table's rows, and the bag lengths."""
+    tables = [torch.randn(v, 64, generator=gen, device="cuda").to(dtype)
+              for v in RAGGED_ROWS]
+    rank_of = [torch.randperm(v, generator=gen, device="cuda")
+               .to(torch.int32) for v in RAGGED_ROWS]
+    idx = torch.cat([torch.randint(0, v, (b, n), generator=gen,
+                                   device="cuda")
+                     for v, n in zip(RAGGED_ROWS, RAGGED_LOOKUPS,
+                                     strict=True)], dim=1)
+    return tables, rank_of, idx.to(torch.int32), RAGGED_LOOKUPS
+
+
 class TestRecFlashSLSGroupedOnCard:
     ROWS, HOT = (64, 100, 130), (1, 17, 129)
 
@@ -121,7 +149,7 @@ class TestRecFlashSLSGroupedOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("d,lk", [(18, 5), (8, 1), (128, 80), (64, 33)])
     def test_widths_and_lookups(self, gen, dtype, d, lk):
-        # D=18: scalar path; L=80 and 33 run the 32-slot ring past its depth
+        # D=18: scalar path; L=80 and 33 run the 8-slot ring past its depth
         tables, rank_of, idx = _group(gen, self.ROWS, d, self.HOT, 8, lk,
                                       dtype)
         torch.testing.assert_close(
@@ -147,6 +175,72 @@ class TestRecFlashSLSGroupedOnCard:
         with pytest.raises(TypeError):
             recflash_sls_grouped(tables, self.HOT, idx.long(), rank_of, desc)
         assert recflash_sls_grouped.launches == before
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b", [1, 7, 9, 4096])
+    @pytest.mark.parametrize("d", [64, 18])
+    def test_bit_equal_at_every_batch_edge(self, gen, dtype, b, d):
+        # a block holds 128 / G samples of one table: at B = 1, 7 and 9
+        # each table's last block is partly empty; D = 18 is the scalar path
+        tables, rank_of, idx = _group(gen, self.ROWS, d, self.HOT, b, 20,
+                                      dtype)
+        assert torch.equal(
+            recflash_sls_grouped(tables, self.HOT, idx, rank_of),
+            ops.sls_grouped_ref(tables, self.HOT, idx, rank_of))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b", [1, 9, 4096])
+    def test_ragged_bit_equal_with_bags_of_1_and_100(self, gen, dtype, b):
+        tables, rank_of, idx, lookups = _ragged(gen, b, dtype)
+        hot = RAGGED_HOT
+        assert torch.equal(
+            recflash_sls_grouped(tables, hot, idx, rank_of, lookups=lookups),
+            ops.sls_grouped_ref(tables, hot, idx, rank_of, lookups))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_out_of_range_ids_clamp_bit_equal(self, gen, dtype):
+        tables, rank_of, idx = _group(gen, self.ROWS, 64, self.HOT, 9, 20,
+                                      dtype)
+        bad = torch.tensor([-2**31, -1, 63, 64, 100, 129, 130, 2**31 - 1],
+                           dtype=torch.int32, device="cuda")
+        where = torch.randint(0, idx.numel(), (200,), generator=gen,
+                              device="cuda")
+        idx.view(-1)[where] = bad[torch.randint(0, len(bad), (200,),
+                                                generator=gen,
+                                                device="cuda")]
+        for ro in (rank_of, None):
+            assert torch.equal(
+                recflash_sls_grouped(tables, self.HOT, idx, ro),
+                ops.sls_grouped_ref(tables, self.HOT, idx, ro))
+            flat = idx.flatten(1)
+            assert torch.equal(
+                recflash_sls_grouped(tables, self.HOT, flat, ro,
+                                     lookups=(20,) * 3),
+                ops.sls_grouped_ref(tables, self.HOT, flat, ro, (20,) * 3))
+
+    def test_ragged_launch_captured_and_replayed(self, gen):
+        tables, rank_of, idx, lookups = _ragged(gen, 9, torch.float32)
+        desc = describe(tables, RAGGED_HOT, rank_of)
+        static = idx.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):      # warm: build, attributes set
+            recflash_sls_grouped(tables, RAGGED_HOT, static, rank_of, desc,
+                                 lookups)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = recflash_sls_grouped.launches
+        with torch.cuda.graph(graph):
+            out = recflash_sls_grouped(tables, RAGGED_HOT, static, rank_of,
+                                       desc, lookups)
+        assert recflash_sls_grouped.launches == before
+        for _ in range(3):
+            _, _, new, _ = _ragged(gen, 9, torch.float32)
+            static.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, ops.sls_grouped_ref(
+                tables, RAGGED_HOT, new, rank_of, lookups))
 
     def test_descriptor_check_after_add_remap(self, gen):
         cfg = DLRMConfig(name="tiny", n_tables=3, n_dense=13, embed_dim=16,
