@@ -105,12 +105,13 @@ def _attach(p, batch, mesh):
     """The params with the batch's ``rank_of``: without a mesh through
     ``dlrm.add_remap``, which builds the grouped SLS's table descriptors
     (its hot size 1, as the reference's ``_bag`` reads the stored table
-    whole). The dict is new on every call, so it holds no CUDA graphs and
-    the forward runs it on its eager route."""
+    whole). The dict is new on every call, so no graph captured for it
+    would replay: it holds no ``GraphCache`` and the forward runs it on its
+    eager route."""
     if "rank_of" not in batch:
         return p
     if mesh is None:
-        return dlrm.add_remap(p, batch["rank_of"], graphs=False)
+        return {**dlrm.add_remap(p, batch["rank_of"]), dlrm.GRAPHS: None}
     return {**p, "rank_of": batch["rank_of"]}
 
 

@@ -36,6 +36,7 @@ EXTRA_FLAGS = {"flash_attention": ("--split-compile", "0", "-lcuda")}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -89,13 +90,17 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
 
 
 def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C function ``symbol`` of kernel library ``name``, built and loaded
-    on first use, with its argument types set (``c_void_p`` for every
-    pointer and the stream) and an ``int`` (a ``cudaError_t``) result."""
-    if name not in _loaded:
-        build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C function ``symbol`` of kernel library ``name``, built, loaded
+    and bound on first use: its argument types set (``c_void_p`` for every
+    pointer and the stream) and an ``int`` (a ``cudaError_t``) result.
+    Later calls return the bound function as it is."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        if name not in _loaded:
+            build_all((name,))
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(_loaded[name], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[name, symbol] = fn
     return fn

@@ -22,8 +22,7 @@ from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
 from repro_torch.kernels.dot_interaction import (
     dot_interaction_fused as _fused_kernel)
 from repro_torch.kernels import flash_attention as _attn
-from repro_torch.kernels.recflash_sls import (RecFlashSLSGrouped,
-                                              RecFlashSLSRagged)
+from repro_torch.kernels.recflash_sls import RecFlashSLSGrouped
 from repro_torch.kernels.recflash_sls import recflash_sls as _sls_kernel
 from repro_torch.kernels.recflash_sls import (
     recflash_sls_grouped as _grouped_kernel)
@@ -56,11 +55,8 @@ def recflash_sls_grouped(tables, hot_sizes, indices, rank_of=None,
     reads the row of id V-1, and an id at or past V gives NaN.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        if lookups is not None:
-            return RecFlashSLSRagged.apply(hot_sizes, indices, rank_of, desc,
-                                           tuple(lookups), *tables)
         return RecFlashSLSGrouped.apply(hot_sizes, indices, rank_of, desc,
-                                        *tables)
+                                        lookups, *tables)
     return _grouped_kernel(tables, hot_sizes, indices, rank_of, desc, lookups)
 
 

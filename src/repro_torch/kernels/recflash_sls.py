@@ -7,8 +7,9 @@ serves two entries:
 - ``recflash_sls_grouped``: every table of a batch in one launch, logical
   ids translated through each table's ``rank_of`` inside the kernel. The
   tables are named by a small device array of descriptors (``describe``),
-  built once (``dlrm.add_remap``) and checked against the tables on every
-  call.
+  built once (``dlrm.add_remap``). ``TableDescs.check`` is the one rule
+  for whether they still name the tables: the wrapper runs it on every
+  call, and ``models.dlrm``'s graph route on every replay.
 - ``recflash_sls``: one table given as its two tiers and ranks, the TPU
   kernel's own contract.
 
@@ -35,10 +36,10 @@ The lengths and offsets go to the kernel in its launch's arguments (a
 CUDA graph captures them), so a ragged call copies nothing to the card and
 builds no descriptor.
 
-``RecFlashSLSGrouped`` (and ``RecFlashSLSRagged``, over ragged bags) gives
-the grouped entry a gradient for each stored table. The TPU kernel has none
-(the reference differentiates its plain ``jnp.take`` bags), so the backward
-is plain PyTorch on both devices: ``recflash_sls_grouped_backward``.
+``RecFlashSLSGrouped`` gives the grouped entry, over either layout, a
+gradient for each stored table. The TPU kernel has none (the reference
+differentiates its plain ``jnp.take`` bags), so the backward is plain
+PyTorch on both devices: ``recflash_sls_grouped_backward``.
 """
 
 from __future__ import annotations
@@ -64,10 +65,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
 MAX_RAGGED_TABLES = 128
 
 
-# what a wrapper raises for descriptors built from other tensors
-STALE_DESCRIPTORS = ("the descriptors no longer match the tables they name "
-                     "(a table, hot size or rank_of was replaced); describe "
-                     "the tables again (dlrm.add_remap)")
+_STALE = ("the descriptors no longer match the tables they name (a table, "
+          "hot size or rank_of was replaced); describe the tables again "
+          "(dlrm.add_remap)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +85,21 @@ class TableDescs:
     key: tuple
     vec: bool
 
+    def check(self, tables, hot_sizes, rank_of) -> None:
+        """Raise ValueError unless these descriptors still name ``tables``
+        split at ``hot_sizes`` with ``rank_of``: every pointer and shape and
+        every hot size as when they were built."""
+        if _key(tables, hot_sizes, rank_of) != self.key:
+            raise ValueError(_STALE)
+
 
 def _key(tables, hot_sizes, rank_of) -> tuple:
     """What a set of descriptors names: the tables' and rank_of tensors'
-    pointers and shapes, and the hot sizes. Checked on every call, in
-    place of building the descriptors anew."""
-    return (tuple(t.data_ptr() for t in tables),
-            tuple(t.shape for t in tables), tuple(hot_sizes),
-            None if rank_of is None else tuple((r.data_ptr(), r.shape)
-                                               for r in rank_of))
+    pointers and shapes, and the hot sizes. (``map`` over the unbound
+    methods: the graph route runs this on every replay.)"""
+    named = [*tables, *(rank_of or ())]
+    return (tuple(map(torch.Tensor.data_ptr, named)),
+            tuple(map(torch.Tensor.size, named)), tuple(hot_sizes))
 
 
 def describe(tables, hot_sizes, rank_of=None) -> TableDescs:
@@ -250,8 +256,8 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     None). With ``lookups``, one bag length (at least 1) a table, the
     indices are ragged instead: (B, sum(lookups)), table t's ids in its own
     columns (module docstring). ``desc`` are the tables' descriptors from
-    ``describe``; they are checked against the arguments (pointers, shapes,
-    hot sizes), and built for this call when None.
+    ``describe``, checked against the arguments (``TableDescs.check``), or
+    None to build them for this call.
     Returns (B, n_tables, D) in the tables' dtype, each bag added in
     float32 in lookup order and rounded once.
 
@@ -263,8 +269,8 @@ def recflash_sls_grouped(tables, hot_sizes, indices: torch.Tensor,
     """
     if desc is None:
         desc = describe(tables, hot_sizes, rank_of)
-    elif _key(tables, hot_sizes, rank_of) != desc.key:
-        raise ValueError(STALE_DESCRIPTORS)
+    else:
+        desc.check(tables, hot_sizes, rank_of)
     dev = tables[0].device
     if lookups is not None:
         lookups = _check_ragged(lookups, len(tables), indices)
@@ -322,29 +328,10 @@ def recflash_sls_grouped_backward(grad: torch.Tensor, n_rows, indices,
     return out
 
 
-def _grouped_forward(ctx, hot_sizes, indices, rank_of, desc, lookups,
-                     tables) -> torch.Tensor:
-    ctx.save_for_backward(indices)
-    ctx.rank_of, ctx.lookups = rank_of, lookups
-    ctx.meta = [(t.shape[0], t.dtype) for t in tables]
-    return recflash_sls_grouped(list(tables), hot_sizes, indices, rank_of,
-                                desc, lookups)
-
-
-def _table_grads(ctx, grad, n_args: int) -> list:
-    """Each stored table's gradient, in its dtype; the first ``n_args``
-    inputs are not tensors that take one."""
-    (indices,) = ctx.saved_tensors
-    grads = recflash_sls_grouped_backward(
-        grad, [v for v, _ in ctx.meta], indices, ctx.rank_of,
-        ctx.needs_input_grad[n_args:], ctx.lookups)
-    return [g if g is None else g.to(dt)
-            for g, (_, dt) in zip(grads, ctx.meta, strict=True)]
-
-
 class RecFlashSLSGrouped(torch.autograd.Function):
     """``recflash_sls_grouped`` with a gradient for each stored table:
-    ``apply(hot_sizes, indices, rank_of, desc, *tables)``.
+    ``apply(hot_sizes, indices, rank_of, desc, lookups, *tables)``, with
+    ``lookups`` None for uniform bags and the bag lengths for ragged ones.
 
     The forward is the entry itself (the kernel on a CUDA tensor, the plain
     version on a CPU tensor); the backward is
@@ -353,28 +340,22 @@ class RecFlashSLSGrouped(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, hot_sizes, indices, rank_of, desc, *tables):
-        return _grouped_forward(ctx, hot_sizes, indices, rank_of, desc, None,
-                                tables)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (None,) * 4 + tuple(_table_grads(ctx, grad, 4))
-
-
-class RecFlashSLSRagged(torch.autograd.Function):
-    """``RecFlashSLSGrouped`` over ragged bags:
-    ``apply(hot_sizes, indices, rank_of, desc, lookups, *tables)``, indices
-    (B, sum(lookups)) as ``recflash_sls_grouped`` takes them."""
-
-    @staticmethod
     def forward(ctx, hot_sizes, indices, rank_of, desc, lookups, *tables):
-        return _grouped_forward(ctx, hot_sizes, indices, rank_of, desc,
-                                lookups, tables)
+        ctx.save_for_backward(indices)
+        ctx.rank_of, ctx.lookups = rank_of, lookups
+        ctx.meta = [(t.shape[0], t.dtype) for t in tables]
+        return recflash_sls_grouped(list(tables), hot_sizes, indices, rank_of,
+                                    desc, lookups)
 
     @staticmethod
     def backward(ctx, grad):
-        return (None,) * 5 + tuple(_table_grads(ctx, grad, 5))
+        (indices,) = ctx.saved_tensors
+        grads = recflash_sls_grouped_backward(
+            grad, [v for v, _ in ctx.meta], indices, ctx.rank_of,
+            ctx.needs_input_grad[5:], ctx.lookups)
+        return (None,) * 5 + tuple(
+            g if g is None else g.to(dt)
+            for g, (_, dt) in zip(grads, ctx.meta, strict=True))
 
 
 recflash_sls.launches = 0           # launches run since the last reset

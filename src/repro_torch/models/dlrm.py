@@ -58,7 +58,7 @@ route and ``retrieval_score`` do not take ragged bags (they raise).
 
 A small inference batch on the card replays a CUDA graph of the forward
 instead of dispatching its ~19 launches from Python (``eager_reason``
-says which calls; the others run the eager forward unchanged). The graph
+says which calls; this paragraph is the route's whole contract). The graph
 holds the same launches: the grouped SLS, the fused interaction and the
 cuBLAS MLPs with their bias adds and ReLUs; only the host's work per
 launch goes. A call's rows are rounded up to a power of two
@@ -69,23 +69,22 @@ a real row), and the logits come back as a clone of the graph's output,
 which the next replay overwrites. A bucket's first call runs eagerly,
 returns that result, then captures the graph; a capture that fails
 raises. The graphs live in the ``GraphCache`` that ``add_remap`` puts in
-the dict it returns, so they die with the parameters; they are bound to
-the descriptors, the MLP and cross tensors' pointers, shapes and dtypes
-and the TF32 setting they were captured with, and a call that finds any of
-these replaced drops them and captures anew. The descriptors' own key (the
-tables' and ``rank_of``'s pointers and shapes, the hot sizes) is checked
-once, when the graphs are bound; later calls check the tables' and
-``rank_of``'s data pointers and the hot sizes against it, so a table, hot
-size or ``rank_of`` replaced without ``add_remap``, or a tensor whose
-storage is swapped under it (``.data =``, ``set_``), raises as the SLS
-wrapper does. Writes into the tensors in place are read by the next
-replay, as by the eager route. The cache is not safe to share across
-threads or streams that run at once. ``forward.graph_captures`` and
-``forward.graph_replays`` count the route. The kernels' ``launches``
-counters count only the launches their wrappers make to run at once (the
-eager calls): a launch recorded into a graph is not counted, and a replay
-runs the graph's kernels without their wrappers, so a trace of the card
-is what shows them.
+the dict it returns, so they die with the parameters. They are bound to
+the SLS descriptors (by identity), the MLP and cross tensors' pointers,
+shapes and dtypes and the TF32 setting they were captured with; a call
+that finds any of these replaced drops them and captures anew. Every call
+first checks the descriptors against the params' tables, hot sizes and
+``rank_of`` (``TableDescs.check``, the SLS wrapper's own rule), so a
+table, hot size or ``rank_of`` replaced without ``add_remap`` (a clone, a
+view of fewer rows, a tensor whose storage is swapped under it by ``.data
+=`` or ``set_``) raises on this route as on the eager one. Writes into the
+tensors in place are read by the next replay, as by the eager route. The
+cache is not safe to share across threads or streams that run at once.
+``forward.graph_captures`` and ``forward.graph_replays`` count the route.
+The kernels' ``launches`` counters count only the launches their wrappers
+make to run at once (the eager calls): a launch recorded into a graph is
+not counted, and a replay runs the graph's kernels without their
+wrappers, so a trace of the card is what shows them.
 """
 
 from __future__ import annotations
@@ -104,7 +103,7 @@ from repro_torch.embedding.sharded import (sharded_embedding_bag,
                                            sharded_embedding_bag_2d,
                                            sharded_remapped_bag)
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.recflash_sls import STALE_DESCRIPTORS, _key, describe
+from repro_torch.kernels.recflash_sls import describe
 from repro_torch.models.common import (bce_with_logits, make_generator, mlp,
                                        mlp_init, normal_init, uniform_init)
 
@@ -369,22 +368,24 @@ def _constrain_hybrid(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x.chunk(n)[mesh.axis_index("model")]
 
 
-# The graph route's largest batch (module docstring; ``eager_reason`` says
-# why).
+# The graph route's largest batch. Below it the host's eager dispatch
+# (~0.5 ms on an H100's host) outlasts the card's work, which a replay
+# leaves as it is; rmc2's forward (32 tables, 120 lookups) takes the card
+# as long as its dispatch at about 1,024 rows, and a graph gains nothing at
+# 2,048. Above it the copies into the static inputs only add: rmc2's ids
+# are 63 MB at 4,096 rows, ~4% of a step there.
 GRAPH_MAX_ROWS = 1024
 GRAPHS = "graphs"          # the params' key of their ``GraphCache``
 
 
 class GraphCache:
     """The CUDA graphs of one parameter set's inference forward, one a
-    bucket and input layout, in one memory pool (module docstring).
-    ``add_remap`` puts a new one in each dict it returns. Not safe to share
-    across threads."""
+    bucket and input layout, in one memory pool, and what they are bound
+    to (module docstring)."""
 
     def __init__(self):
         self.desc = None       # the SLS descriptors every graph reads
         self.bound = None      # the dense tensors and TF32 setting they read
-        self.tables = None     # the data pointers and hot sizes they name
         self.graphs: dict = {}
         self.pool = None
 
@@ -415,18 +416,12 @@ def _dense_tensors(params) -> list:
 def eager_reason(params, batch, mesh=None, plain: bool = False
                  ) -> str | None:
     """Why ``forward`` runs this call on its eager route, or None where it
-    replays a CUDA graph: ``"mesh"``, ``"plain"``, ``"descriptors"``
-    (params without the grouped SLS descriptors and ``GraphCache`` of
-    ``add_remap``), ``"rows"`` (none, or more than ``GRAPH_MAX_ROWS``),
-    ``"gradient"`` (grad mode on and a parameter or the dense features
-    require one) or ``"device"`` (not CUDA tensors).
-
-    The limit of ``GRAPH_MAX_ROWS`` rows: below it the host's eager
-    dispatch (~0.5 ms on an H100's host) outlasts the card's work, which a
-    replay leaves as it is; rmc2's forward (32 tables, 120 lookups) takes
-    the card as long as its dispatch at about 1,024 rows, and a graph gains
-    nothing at 2,048. Above it the copies into the static inputs only add:
-    rmc2's ids are 63 MB at 4,096 rows, ~4% of a step there."""
+    takes the graph route (module docstring): ``"mesh"``, ``"plain"``,
+    ``"descriptors"`` (params without the grouped SLS descriptors or
+    without the ``GraphCache`` of ``add_remap``), ``"rows"`` (none, or
+    more than ``GRAPH_MAX_ROWS``), ``"gradient"`` (grad mode on and a
+    parameter or the dense features require one) or ``"device"`` (not
+    CUDA tensors)."""
     if mesh is not None:
         return "mesh"
     if plain:
@@ -450,20 +445,13 @@ def _graphed(params, batch, cfg: DLRMConfig) -> torch.Tensor:
     """``forward``'s graph route: replay the bucket's graph, or run the
     call eagerly and capture it."""
     cache, desc = params[GRAPHS], params["sls_desc"]
-    mlps = _dense_tensors(params)
-    bound = ([(t.data_ptr(), t.shape, t.dtype) for t in mlps],
+    desc.check(params["tables"], params["hot_sizes"], params["rank_of"])
+    bound = ([(t.data_ptr(), t.shape, t.dtype)
+              for t in _dense_tensors(params)],
              torch.backends.cuda.matmul.allow_tf32)
-    tables, rank_of = params["tables"], params["rank_of"]
-    named = (list(map(torch.Tensor.data_ptr, tables)),
-             list(map(torch.Tensor.data_ptr, rank_of)),
-             list(params["hot_sizes"]))
     if cache.desc is not desc or cache.bound != bound:
-        if _key(tables, params["hot_sizes"], rank_of) != desc.key:
-            raise ValueError(STALE_DESCRIPTORS)
-        cache.desc, cache.bound, cache.tables = desc, bound, named
+        cache.desc, cache.bound = desc, bound
         cache.graphs, cache.pool = {}, None
-    elif named != cache.tables:
-        raise ValueError(STALE_DESCRIPTORS)
     dense, indices = batch["dense"], batch["indices"]
     rows = dense.shape[0]
     key = (graph_bucket(rows), dense.dtype, dense.shape[1:], indices.dtype,
@@ -519,21 +507,14 @@ def forward(params, batch, cfg: DLRMConfig, mesh=None, axes=("data",),
     of running model-ways replicated; ``table_2d`` (with ``hybrid``) takes
     the 2D row-sharded tables.
 
-    A call that ``eager_reason`` passes (no mesh, not ``plain``, no
-    gradient wanted, at most ``GRAPH_MAX_ROWS`` rows of CUDA tensors, on
-    params from ``add_remap``) replays its bucket's CUDA graph: the rows
-    copied into the bucket's static inputs, the graph replayed, its first
-    rows' logits returned as a clone. The graphs are keyed by the bucket,
-    the inputs' dtypes and widths, and bound to the tensors they read; a
-    bucket's first call runs eagerly and then captures. The cache is not
-    thread-safe. The module docstring has the details and the counters.
+    A call that ``eager_reason`` passes takes the graph route (module
+    docstring).
 
     Under a torch profiler the call is the span ``obs.FORWARD``. On the
     eager route it holds ``obs.BOT_MLP``, ``obs.BAGS``, ``obs.INTERACT``
     (the bags' cast to the interaction's dtype included; for ``"dcn"`` the
     concatenation and the whole cross network) and ``obs.TOP_MLP``
-    (``repro_torch.obs``); a replay has no child spans. The graphs the
-    binding names include the cross network's tensors.
+    (``repro_torch.obs``); a replay has no child spans.
 
     The mesh route (``mesh=``) does not take ragged bags: it raises.
     """
@@ -642,24 +623,22 @@ def retrieval_score(params, batch, cfg: DLRMConfig, mesh=None,
     return mlp(params["top"], feat)[:, 0]                        # (N,)
 
 
-def add_remap(params, rank_ofs, hot_sizes=None, graphs: bool = True) -> dict:
+def add_remap(params, rank_ofs, hot_sizes=None) -> dict:
     """Attach per-table logical->rank hash tables (RecFlash layout) and the
     hot size that splits each stored table into its two tiers.
 
     ``rank_ofs`` are (V,) arrays or tensors, kept as int32 on the tables'
     device; ``hot_sizes`` defaults to 1 per table. Also builds the grouped
-    SLS kernel's table descriptors (``sls_desc``); the kernel's wrapper
-    refuses them after a table, hot size or rank_of is replaced, so a
+    SLS kernel's table descriptors (``sls_desc``); they refuse a table,
+    hot size or rank_of replaced after this (``TableDescs.check``), so a
     training step, whose optimizer returns new tables, calls this every
     step. An int32 tensor is taken as it is: it cannot be out of range, and
     checking a wider one reads its maximum back from the device. Tables of
     a dtype the kernel does not take (float64, for a float64 oracle) get no
     descriptors: only the plain route serves them.
 
-    The dict also holds an empty ``GraphCache`` (key ``GRAPHS``), for the
-    CUDA graphs ``forward`` captures on these params (module docstring).
-    ``graphs=False`` puts None there, for a dict built anew for each call:
-    a graph captured for it would never replay, so its calls stay eager.
+    The dict also holds an empty ``GraphCache`` (key ``GRAPHS``) for the
+    graph route (module docstring).
     """
     device = params["tables"][0].device
     rank_of = []
@@ -675,7 +654,7 @@ def add_remap(params, rank_ofs, hot_sizes=None, graphs: bool = True) -> dict:
     desc = (describe(params["tables"], hot, rank_of)
             if params["tables"][0].dtype in _build.DTYPE_CODES else None)
     return {**params, "rank_of": rank_of, "hot_sizes": hot,
-            "sls_desc": desc, GRAPHS: GraphCache() if graphs else None}
+            "sls_desc": desc, GRAPHS: GraphCache()}
 
 
 forward.graph_captures = 0   # graphs captured since the last reset

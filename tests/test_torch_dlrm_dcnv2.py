@@ -19,7 +19,7 @@ from repro_torch import configs
 from repro_torch.configs import dlrm_dcnv2
 from repro_torch.embedding.layout import lookup
 from repro_torch.kernels import ref
-from repro_torch.kernels.recflash_sls import (RecFlashSLSRagged, describe,
+from repro_torch.kernels.recflash_sls import (RecFlashSLSGrouped, describe,
                                               recflash_sls_grouped)
 from repro_torch.models import dlrm
 from repro_torch.models.common import bce_with_logits
@@ -140,10 +140,10 @@ def test_ragged_layout_is_checked():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_backward_equals_autograd_of_the_reference(dtype):
-    """The ragged Function's gradient of each table (ids read as ranks)
-    against autograd through the reference's bags over the tables widened
-    to float32: the Function adds each table's gradient in float32 and
-    rounds it once to the table's dtype, so a bf16 gradient may sit one
+    """The Function's gradient of each table over ragged bags (ids read
+    as ranks) against autograd through the reference's bags over the tables
+    widened to float32: the Function adds each table's gradient in float32
+    and rounds it once to the table's dtype, so a bf16 gradient may sit one
     bf16 ulp (2^-8 relative) from the float32 one rounded, where the two
     sums in other orders fall on either side of a tie."""
     gen = torch.Generator().manual_seed(5)
@@ -152,8 +152,8 @@ def test_ragged_backward_equals_autograd_of_the_reference(dtype):
     wide = [t.detach().float().requires_grad_() for t in tables]
     idx = _batch()["indices"]
     g = torch.randn(32, 4, 8, generator=gen).to(dtype)
-    out = RecFlashSLSRagged.apply(HOT, idx, None, None, TINY.lookups,
-                                  *tables)
+    out = RecFlashSLSGrouped.apply(HOT, idx, None, None, TINY.lookups,
+                                   *tables)
     got = torch.autograd.grad(out, tables, g)
     want = torch.autograd.grad(ref_dcn.bags(wide, idx, TINY.lookups), wide,
                                g.float())
@@ -381,9 +381,9 @@ def test_ragged_function_on_card_equals_the_cpu(card):
     batch = _batch(cfg, 64, 4, card)
     tables = [t.requires_grad_() for t in port["tables"]]
     g = torch.randn(64, 26, 128, device=card)
-    out = RecFlashSLSRagged.apply(port["hot_sizes"], batch["indices"],
-                                  port["rank_of"], port["sls_desc"],
-                                  cfg.lookups, *tables)
+    out = RecFlashSLSGrouped.apply(port["hot_sizes"], batch["indices"],
+                                   port["rank_of"], port["sls_desc"],
+                                   cfg.lookups, *tables)
     got = torch.autograd.grad(out, tables, g)
     cpu = [t.detach().cpu().requires_grad_() for t in tables]
     want_out = ref.recflash_sls_grouped_ref(

@@ -155,13 +155,50 @@ def test_registry_attach_leaves_the_cache_out():
     assert dlrm.eager_reason(attached, batch) == "descriptors"
 
 
-def test_add_remap_without_graphs():
+def _edit(key, t, fn):
+    return lambda p: {**p, key: [fn(x) if i == t else x
+                                 for i, x in enumerate(p[key])]}
+
+
+# params edits after add_remap -> whether the descriptors are stale
+STALE_CASES = {
+    "unchanged": (lambda p: p, False),
+    "table_clone": (_edit("tables", 1, torch.Tensor.clone), True),
+    "table_view_fewer_rows": (_edit("tables", 2, lambda t: t[:400]), True),
+    "hot_size": (_edit("hot_sizes", 0, lambda h: h + 1), True),
+    "rank_of_view": (_edit("rank_of", 0, lambda r: r[:250]), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STALE_CASES))
+def test_one_staleness_rule(case):
+    """``TableDescs.check`` is the one rule: the eager forward raises where
+    it raises, and so does the graph route, whose check runs before
+    anything touches the card (so it runs here); a view over the same
+    storage with fewer rows is stale on both."""
     cfg, params = _model()
-    bare = dlrm.add_remap(params, params["rank_of"], params["hot_sizes"],
-                          graphs=False)
-    assert params[dlrm.GRAPHS] is not None and bare[dlrm.GRAPHS] is None
-    assert bare["sls_desc"].key == params["sls_desc"].key
-    assert dlrm.eager_reason(bare, _batch(cfg, 8)) == "descriptors"
+    edit, stale = STALE_CASES[case]
+    edited = edit(params)
+    args = (edited["tables"], edited["hot_sizes"], edited["rank_of"])
+    batch = _batch(cfg, 8)
+    desc = params["sls_desc"]
+    assert edited["sls_desc"] is desc
+    if not stale:
+        desc.check(*args)
+        with torch.inference_mode():
+            torch.testing.assert_close(
+                dlrm.forward(edited, batch, cfg),
+                dlrm.forward(edited, batch, cfg, plain=True), **TOL)
+        return
+    with pytest.raises(ValueError, match="no longer match"):
+        desc.check(*args)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="no longer match"):
+            dlrm.forward(edited, batch, cfg)
+        with pytest.raises(ValueError, match="no longer match"):
+            dlrm._graphed(edited, batch, cfg)
+    assert params[dlrm.GRAPHS].desc is None
+    assert params[dlrm.GRAPHS].graphs == {}
 
 
 # on the card
@@ -291,11 +328,13 @@ def test_a_table_replaced_without_add_remap_raises(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("swap", ["table_data", "rank_of_set"])
+@pytest.mark.parametrize("swap", ["table_data", "rank_of_set",
+                                  "table_view"])
 def test_storage_swapped_under_a_tensor_raises(card, swap):
     """A table or ``rank_of`` that keeps its identity but gets new storage
-    (``.data =``, ``set_``) after the graphs replayed raises, as the SLS
-    wrapper would, until ``add_remap`` describes it again."""
+    (``.data =``, ``set_``), or a table replaced by a view of fewer rows
+    over its storage, after the graphs replayed raises, as the SLS wrapper
+    would, until ``add_remap`` describes it again."""
     cfg, params = _model("cuda")
     batch = _batch(cfg, 20, "cuda")
     for _ in range(3):
@@ -303,6 +342,8 @@ def test_storage_swapped_under_a_tensor_raises(card, swap):
     if swap == "table_data":
         table = params["tables"][2]
         table.data = table.data.clone()
+    elif swap == "table_view":
+        params["tables"][2] = params["tables"][2][:400]
     else:
         rank_of = params["rank_of"][0]
         rank_of.set_(rank_of.clone())

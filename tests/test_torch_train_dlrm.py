@@ -103,7 +103,7 @@ class TestLossAndGradients:
             np.float32))
         hot = [3, 29]
         got = torch.autograd.grad(RecFlashSLSGrouped.apply(
-            hot, idx, rank_of, None, *tables), tables, g)
+            hot, idx, rank_of, None, None, *tables), tables, g)
         want = torch.autograd.grad(ref.recflash_sls_grouped_ref(
             tables, hot, idx, rank_of), tables, g)
         for a, b in zip(got, want, strict=True):
