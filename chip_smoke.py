@@ -134,7 +134,7 @@ Phases, each of which fails the run when it fails:
    hot rank a table, the first 64 ranks, all-distinct cold ranks, and the
    bulk cells' Zipf traffic at K=0 and K=2; ms a launch beside its bound
    (unique rows, ``rank_of`` entries, ids and bags at 3.35 TB/s) and the
-   rate at which it copies rows, where the head is served from and how
+   rate at which it reads rows, where the head is served from and how
    far each case stands from its bound;
 16. dryrun: ``python -m repro_torch.launch.dryrun --mesh single`` in two
    subprocesses at once, over the cells the next two phases read
@@ -2298,11 +2298,13 @@ def phase_sls_probe(card: str) -> dict:
     sys.path.insert(0, str(ROOT))
     from tools import sls_probe
     t0 = time.perf_counter()
-    recs = sls_probe.probe([ROOT], rounds=1)
+    recs = [r for r in sls_probe.probe([ROOT], rounds=1,
+                                       cases=sls_probe.CASES)
+            if "case" in r]
     for r in recs:
         print(f"[sls_probe] {r['case']} on {card}: {r['ms'] * 1e3:.2f} us a "
               f"launch (bound {r['bound_ms'] * 1e3:.2f} us by "
-              f"{r['bound_by']}, {r['roofline_pct']:.2f}%), rows copied at "
+              f"{r['bound_by']}, {r['roofline_pct']:.2f}%), rows read at "
               f"{r['row_copies_tb_s']:.2f} TB/s")
     gc.collect()
     torch.cuda.empty_cache()

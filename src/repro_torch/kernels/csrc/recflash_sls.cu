@@ -49,39 +49,52 @@
 //   f32 and for D=128 bf16) serves one bag, 128/G bags a block.
 // - Three dependent round trips per bag: the group reads the bag's L ids
 //   (8 per thread per round, all issued before any is used), then their
-//   rank_of entries, and writes the clamped ranks to shared memory; after
-//   one barrier every row address is known.
-// - Rows travel by 16-byte cp.async copies into a per-thread ring of 8
-//   slots in shared memory (Hopper's form of the TPU kernel's row DMA
-//   double buffer): a thread keeps up to 8 row reads in flight, waits for
-//   the oldest, adds it and refills its slot. Each thread copies and reads
-//   only its own slots, so the ring needs no barrier. (Consuming 4 lookups
-//   per wait, to expose one shared-memory latency per 4, measured the same
-//   on the card; see PERF.md.)
+//   rank_of entries, and writes the clamped ranks to shared memory (a
+//   bag's ranks padded to a multiple of 4, so that they are read back 4 at
+//   a time as one 16-byte vector); after one barrier every row address is
+//   known. Shared memory holds nothing else: 3.8 KB a block at rmc2's
+//   shape (8 bags of 120 lookups).
+// - Rows travel by 16-byte loads straight into registers, pipelined in
+//   registers: a thread keeps the next kDepth lookups' vectors in flight as
+//   uint4 registers, adds the oldest when it has landed and then issues the
+//   load kDepth lookups on into its registers. A row vector read from L1
+//   crosses the SM's L1/shared-memory array once; a cp.async ring in
+//   shared memory crossed it three times (L1 read, shared store, shared
+//   load) and took ~0.48 ms a step at rmc2's shape whatever level served
+//   the rows.
+//   kDepth is 8 (128 bytes in flight a thread, as the ring held), or 12
+//   where a launch's bags average at least 24 lookups: a register load
+//   that misses L1 needs more bytes in flight than a cp.async did to keep
+//   HBM as busy (rmc2's K=2 traffic, mostly cold, is ~2% slower at 8 than
+//   the ring, ~2% faster at 12), while short bags want the blocks an SM
+//   holds at 8 (64 registers a thread against 80 to 96 at 12; one-id bags
+//   ~23% slower at 12). tools/sls_probe.py measures both (PERF.md
+//   §6).
+// - A lookup's row address is one select of the tier's base and one wide
+//   multiply-add (Rows, below): with a branch and two 64-bit multiplies a
+//   lookup the loop took over 20 instructions a lookup, and the issue
+//   slots, not the memory, bounded it.
 // - Each thread owns 16-byte vectors of the row (4 f32 or 8 bf16 values)
 //   and adds the bag's rows in lookup order into f32 registers, as the TPU
 //   kernel's fori_loop does, so the sum is bit-equal to a sequential f32
 //   sum. bf16 rows are widened with __bfloat162float.
-// - Where D or a table pointer does not allow 16-byte copies (D=18, say),
+// - Where D or a table pointer does not allow 16-byte loads (D=18, say),
 //   each thread loads single elements straight into registers, 16 lookups
 //   at a time, from the ranks already in shared memory.
-// - The hot tier is served from each SM's L1 where it can be: a row copy
-//   whose rank is below the table's hot size is a cp.async.ca, which
-//   allocates the row in L1; a cold copy stays cp.async.cg (L2 only), so
+// - The hot tier is served from each SM's L1 where it can be: a row load
+//   whose rank is below the table's hot size is ld.global.ca, which
+//   allocates the row in L1; a cold load is ld.global.cg (L2 only), so
 //   that cold rows do not evict the head. The choice is made per lookup,
 //   from the rank, with no setting. Since the SMs serve one table at a
 //   time, the most frequent ranks of that table are read again from L1
 //   (with Zipf 1.23 over 1M ids, a table's first 64 ranks, 16 KB at D=64
 //   f32, take ~69% of its lookups); hot rows that L1 does not hold come
 //   from L2, which holds every table's prefix (32 x 2000 x 256 B = 16 MB
-//   for rmc2) after its first touch. To leave L1 room, the vector path
-//   asks for the shared memory that fills an SM's 2048 threads with
-//   blocks, at most 132 KB (cudaFuncAttributePreferredSharedMemoryCarveout,
-//   set by the launcher), and its ring is 8 slots deep: at rmc2's shape a
-//   block takes 21 KB, an SM holds 6 (768 threads, 96 KB of copies in
-//   flight) and keeps ~124 KB of L1. Measured over rings of 4 to 32 slots
-//   and 64 to 228 KB of shared memory (PERF.md §6): 32 slots leave 28 KB of
-//   L1 at 3 blocks an SM; a smaller carveout starves the threads.
+//   for rmc2) after its first touch. The launcher sets the vector path's
+//   shared-memory carveout to what the blocks its registers allow an SM
+//   need (32 KB at rmc2's shape: 6 blocks of 3.8 KB), so the rest of the
+//   SM's 256 KB, up to 224 KB, is L1 (a 64, 100 or 132 KB carveout read
+//   1%, 3% and 14% slower at rmc2's K=0 traffic).
 //   This is DESIGN.md §2.2's VMEM-resident hot tier as a cache: the
 //   hardware keeps the rows read most, in place of a prefix pinned for the
 //   grid (the prefix, 500 KB a table, exceeds the 227 KB a block can
@@ -116,11 +129,16 @@ static_assert(sizeof(TableDesc) == 48, "TableDesc must be six 8-byte words");
 namespace {
 
 constexpr int kThreads = 128;        // threads per block
-constexpr int kStages = 8;           // ring slots per thread (vector path)
+// Row loads a thread keeps in flight on the vector path (multiples of 4):
+// kDepthShort, or kDepthLong where a launch's bags average at least
+// 2 * kDepthLong lookups.
+constexpr int kDepthShort = 8;
+constexpr int kDepthLong = 12;
 constexpr int kSmemPerSm = 233472;   // 228 KB: an SM's most shared memory
 constexpr int kSmemCap = 135168;     // 132 KB: the most the kernel asks for
 constexpr int kSmemReserved = 1024;  // shared memory the system takes a block
 constexpr int kBlocksPerSm = 16;     // blocks an SM's 2048 threads hold
+constexpr int kRegsPerSm = 65536;    // 32-bit registers an SM has
 constexpr int kAhead = 16;           // lookups per register batch (scalar)
 constexpr int kIdx = 8;              // lookups a thread translates per round
 constexpr int kMaxSmem = 232448;     // 227 KB, the most a block can have
@@ -193,51 +211,105 @@ __device__ __forceinline__ void add_vec(const uint4& v, float* acc) {
   add_word(v.w, acc + 3 * kPerWord, T());
 }
 
-// A 16-byte copy that allocates in L1 (.ca) where `keep` is set, else in L2
-// only (.cg); predicated, so a warp whose two bags differ does not branch.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool keep) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "{\n"
+// A 16-byte load straight into registers that allocates in L1 (.ca) where
+// `keep` is set, else in L2 only (.cg); predicated, so a warp whose two bags
+// differ does not branch.
+__device__ __forceinline__ uint4 ld16(const void* gmem, bool keep) {
+  uint4 v;
+  asm("{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %2, 0;\n"
-      "@p cp.async.ca.shared.global [%0], [%1], 16;\n"
-      "@!p cp.async.cg.shared.global [%0], [%1], 16;\n"
-      "}\n" ::"r"(s),
-      "l"(gmem), "r"(static_cast<int>(keep))
-      : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+      "setp.ne.b32 p, %5, 0;\n"
+      "@p ld.global.ca.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      "@!p ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      "}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(gmem), "r"(static_cast<int>(keep)));
+  return v;
 }
 
+// A table's rows as the row loops address them, at one thread's column: the
+// row of rank r starts at hot + r * row_bytes where r is below split, else
+// at cold + r * row_bytes (cold is the cold tier's row 0 less split rows).
+// One select and one wide multiply-add a lookup, and no branch.
+struct Rows {
+  const char* hot;
+  const char* cold;
+  uint32_t row_bytes;
+  uint32_t split;  // the hot size (a rank is a non-negative int32)
+};
+
 template <typename T>
-__device__ __forceinline__ const T* row_of(const TableDesc& d, int32_t rank,
-                                           int dim) {
-  return rank < d.hot_rows
-             ? static_cast<const T*>(d.hot) + static_cast<long long>(rank) * dim
-             : static_cast<const T*>(d.cold) + (rank - d.hot_rows) * dim;
+__device__ __forceinline__ Rows rows_of(const TableDesc& d, int dim,
+                                        int col) {
+  const uint32_t split = d.hot_rows < 0xffffffffll
+                             ? static_cast<uint32_t>(d.hot_rows)
+                             : 0xffffffffu;
+  const uint32_t row_bytes = static_cast<uint32_t>(dim * sizeof(T));
+  const uintptr_t at = static_cast<uintptr_t>(col) * sizeof(T);
+  return {reinterpret_cast<const char*>(
+              reinterpret_cast<uintptr_t>(d.hot) + at),
+          reinterpret_cast<const char*>(
+              reinterpret_cast<uintptr_t>(d.cold) + at -
+              static_cast<uintptr_t>(split) * row_bytes),
+          row_bytes, split};
+}
+
+__device__ __forceinline__ bool is_hot(const Rows& a, int32_t rank) {
+  return static_cast<uint32_t>(rank) < a.split;
+}
+
+__device__ __forceinline__ const char* row_at(const Rows& a, int32_t rank) {
+  return (is_hot(a, rank) ? a.hot : a.cold) +
+         static_cast<unsigned long long>(static_cast<uint32_t>(rank)) *
+             a.row_bytes;
+}
+
+// One window of the vector path's register pipeline: adds lookups l0 ..
+// l0 + kDepth - 1 in order (v[s] holds lookup l0 + s), and loads lookup
+// l0 + kDepth + s into v[s] as it frees. kWhole: all 2 * kDepth lookups
+// exist, so no bound is tested; else those at or past `lookups` are
+// skipped.
+template <typename T, int kDepth, bool kWhole>
+__device__ __forceinline__ void window(uint4 (&v)[kDepth], float* acc,
+                                       const int4* ranks4, const Rows& a,
+                                       int l0, int lookups) {
+#pragma unroll
+  for (int q = 0; q < kDepth / 4; ++q) {
+    const int l = l0 + 4 * q;
+    const int n = l + kDepth;
+    int4 r4 = make_int4(0, 0, 0, 0);
+    if (kWhole || n < lookups) r4 = ranks4[n / 4];
+    const int32_t r[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (kWhole || l + k < lookups) {
+        add_vec<T>(v[4 * q + k], acc);
+        if (kWhole || n + k < lookups) {
+          v[4 * q + k] = ld16(row_at(a, r[k]), is_hot(a, r[k]));
+        }
+      }
+    }
+  }
 }
 
 // descs: the group's descriptors, or nullptr for the one table `one`.
 // lookups: every bag's length, or in a ragged launch the longest bag's.
 // Block (x, t) serves samples [x * per_block, (x + 1) * per_block) of table
 // t; bag (b, t) writes out row b * n_tables + t.
-// Shared memory: the ranks of the block's bags (lookups int32 each, padded
-// to 16 bytes), then, on the vector path, the ring: slot s of thread lane
-// of bag g is uint4 number (g * slots + s) * group + lane.
-template <typename T, bool kVec, typename Layout>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory: the ranks of the block's bags, bag g's at int32 number
+// g * ranks_per_bag (max_lookups rounded up to a multiple of 4).
+// Registers: a short-bag launch waits on few loads a thread, so it is
+// bound by the bags an SM has in flight, and its instances ask for 8
+// blocks an SM (64 registers a thread; dlrm-mlperf's one-id bf16 bags took
+// 7% longer than with the cp.async ring at 72, 3% at 64). The long-bag
+// instances keep the registers their 12 loads in flight need.
+template <typename T, bool kVec, int kDepth, typename Layout>
+__global__ void __launch_bounds__(kThreads, kDepth == kDepthShort ? 8 : 0)
     sls_kernel(const TableDesc* __restrict__ descs, TableDesc one,
                const int32_t* __restrict__ indices, long long s_b,
                long long s_t, long long s_l, T* __restrict__ out, int batch,
-               int n_tables, int max_lookups, int dim, int group, int slots,
-               int ranks_bytes, __grid_constant__ const Layout layout) {
+               int n_tables, int max_lookups, int dim, int group,
+               __grid_constant__ const Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int per_block = blockDim.x / group;
   const int g = threadIdx.x / group;
@@ -245,7 +317,8 @@ __global__ void __launch_bounds__(kThreads)
   const int t = blockIdx.y;
   const int b = blockIdx.x * per_block + g;
   const bool live = b < batch;
-  int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * max_lookups;
+  const int ranks_per_bag = (max_lookups + 3) / 4 * 4;
+  int32_t* ranks = reinterpret_cast<int32_t*>(smem) + g * ranks_per_bag;
   TableDesc d = one;
   int lookups = max_lookups;
   if (live) {
@@ -282,44 +355,49 @@ __global__ void __launch_bounds__(kThreads)
   T* dst = out + (static_cast<long long>(b) * n_tables + t) * dim;
   if constexpr (kVec) {
     constexpr int kE = 16 / sizeof(T);
-    uint4* ring = reinterpret_cast<uint4*>(smem + ranks_bytes) +
-                  g * slots * group + lane;
+    static_assert(kDepth % 4 == 0, "ranks are read 4 at a time");
+    const int4* ranks4 = reinterpret_cast<const int4*>(ranks);
     for (int c = lane; c < dim / kE; c += group) {
       const int col = c * kE;
+      const Rows a = rows_of<T>(d, dim, col);
       float acc[kE];
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] = 0.0f;
-      // one commit group per lookup: group l holds lookup l's copy
+      // the first kDepth lookups' loads go out before any add
+      uint4 v[kDepth];
 #pragma unroll
-      for (int s = 0; s < kStages; ++s) {
-        if (s < lookups) {
-          const int32_t r = ranks[s];
-          cp_async16(ring + s * group, row_of<T>(d, r, dim) + col,
-                     r < d.hot_rows);
+      for (int q = 0; q < kDepth / 4; ++q) {
+        if (4 * q < lookups) {
+          const int4 r4 = ranks4[q];
+          const int32_t r[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (4 * q + k < lookups) {
+              v[4 * q + k] = ld16(row_at(a, r[k]), is_hot(a, r[k]));
+            }
+          }
         }
-        cp_async_commit();
       }
-      for (int l = 0; l < lookups; ++l) {
-        cp_async_wait<kStages - 1>();      // lookup l's copy has landed
-        uint4* slot = ring + (l % kStages) * group;
-        add_vec<T>(*slot, acc);
-        const int next = l + kStages;
-        if (next < lookups) {
-          const int32_t r = ranks[next];
-          cp_async16(slot, row_of<T>(d, r, dim) + col, r < d.hot_rows);
-        }
-        cp_async_commit();
+      int l0 = 0;
+      for (; l0 + 2 * kDepth <= lookups; l0 += kDepth) {
+        window<T, kDepth, true>(v, acc, ranks4, a, l0, lookups);
+      }
+      for (; l0 < lookups; l0 += kDepth) {   // the last 1 to 2 * kDepth - 1
+        window<T, kDepth, false>(v, acc, ranks4, a, l0, lookups);
       }
       store_vec(dst + col, acc);
     }
   } else {
     for (int c = lane; c < dim; c += group) {
+      const Rows a = rows_of<T>(d, dim, c);
       float acc = 0.0f;
       for (int l0 = 0; l0 < lookups; l0 += kAhead) {
         T r[kAhead];
 #pragma unroll
         for (int u = 0; u < kAhead; ++u) {
-          if (l0 + u < lookups) r[u] = row_of<T>(d, ranks[l0 + u], dim)[c];
+          if (l0 + u < lookups) {
+            r[u] = *reinterpret_cast<const T*>(row_at(a, ranks[l0 + u]));
+          }
         }
 #pragma unroll
         for (int u = 0; u < kAhead; ++u) {
@@ -331,7 +409,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kVec, typename Layout>
+template <typename T, bool kVec, int kDepth, typename Layout>
 int launch(const TableDesc* descs, const TableDesc& one,
            const int32_t* indices, long long s_b, long long s_t,
            long long s_l, T* out, int batch, int n_tables, int lookups,
@@ -340,12 +418,8 @@ int launch(const TableDesc* descs, const TableDesc& one,
   int group = 1;
   while (group < units && group < 32) group <<= 1;
   const int per_block = kThreads / group;
-  const int slots = lookups < kStages ? lookups : kStages;
-  const long long ranks_bytes =
-      (static_cast<long long>(per_block) * lookups * 4 + 15) / 16 * 16;
   const long long smem =
-      ranks_bytes +
-      (kVec ? static_cast<long long>(per_block) * slots * group * 16 : 0);
+      static_cast<long long>(per_block) * ((lookups + 3) / 4 * 4) * 4;
   if (smem > kMaxSmem || n_tables > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -353,49 +427,71 @@ int launch(const TableDesc* descs, const TableDesc& one,
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  // Above 48 KB a kernel needs this attribute, set once per device.
+  // Above 48 KB a kernel needs this attribute, set once per device; and
+  // the blocks an SM's registers hold, read once per device.
   static unsigned long long attr_set = 0;
+  static int blocks_per_sm[64] = {};
   if (!(attr_set >> dev & 1ull)) {
     cudaError_t e = cudaFuncSetAttribute(
-        sls_kernel<T, kVec, Layout>,
+        sls_kernel<T, kVec, kDepth, Layout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, sls_kernel<T, kVec, kDepth, Layout>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // registers are given a warp in units of 256
+    const int per_warp = (fa.numRegs * 32 + 255) / 256 * 256;
+    const int fit = kRegsPerSm / (per_warp * (kThreads / 32));
+    blocks_per_sm[dev] = fit < kBlocksPerSm ? fit : kBlocksPerSm;
     attr_set |= 1ull << dev;
   }
-  // Hot copies land in L1: the vector path asks for the shared memory
-  // that fills an SM's threads with blocks, at most kSmemCap, and the rest
-  // of the SM's 256 KB is L1. Set when it changes.
+  // Hot rows stay in L1: the vector path asks for the shared memory of
+  // the blocks an SM's registers hold, at most kSmemCap, and the rest of
+  // the SM's 256 KB is L1. Set when it changes.
   if constexpr (kVec) {
     static int carveout[64] = {};   // percent + 1; 0: never set
     const long long fill =
-        static_cast<long long>(kBlocksPerSm) * (smem + kSmemReserved);
+        static_cast<long long>(blocks_per_sm[dev]) * (smem + kSmemReserved);
     const long long want = fill < kSmemCap ? fill : kSmemCap;
     const int pct = static_cast<int>(
         (want * 100 + kSmemPerSm - 1) / kSmemPerSm);
     if (carveout[dev] != pct + 1) {
       cudaError_t e = cudaFuncSetAttribute(
-          sls_kernel<T, kVec, Layout>,
+          sls_kernel<T, kVec, kDepth, Layout>,
           cudaFuncAttributePreferredSharedMemoryCarveout, pct);
       if (e != cudaSuccess) return static_cast<int>(e);
       carveout[dev] = pct + 1;
     }
   }
   const dim3 grid((batch + per_block - 1) / per_block, n_tables);
-  sls_kernel<T, kVec, Layout><<<grid, per_block * group, smem, stream>>>(
-      descs, one, indices, s_b, s_t, s_l, out, batch, n_tables, lookups, dim,
-      group, slots, static_cast<int>(ranks_bytes), layout);
+  sls_kernel<T, kVec, kDepth, Layout>
+      <<<grid, per_block * group, smem, stream>>>(
+          descs, one, indices, s_b, s_t, s_l, out, batch, n_tables, lookups,
+          dim, group, layout);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for a launch: the scalar path, or the vector path with the
+// pipeline its bags want. `lookups_sum` is the launch's lookups a sample.
 template <typename T, typename Layout>
 int launch_vec(int vec, const TableDesc* descs, const TableDesc& one,
                const int32_t* indices, long long s_b, long long s_t,
                long long s_l, T* out, int batch, int n_tables, int lookups,
-               int dim, const Layout& layout, cudaStream_t stream) {
-  return vec ? launch<T, true>(descs, one, indices, s_b, s_t, s_l, out, batch,
-                               n_tables, lookups, dim, layout, stream)
-             : launch<T, false>(descs, one, indices, s_b, s_t, s_l, out,
-                                batch, n_tables, lookups, dim, layout, stream);
+               long long lookups_sum, int dim, const Layout& layout,
+               cudaStream_t stream) {
+  if (!vec) {
+    return launch<T, false, kDepthShort>(descs, one, indices, s_b, s_t, s_l,
+                                         out, batch, n_tables, lookups, dim,
+                                         layout, stream);
+  }
+  if (lookups_sum >= 2LL * kDepthLong * n_tables) {
+    return launch<T, true, kDepthLong>(descs, one, indices, s_b, s_t, s_l,
+                                       out, batch, n_tables, lookups, dim,
+                                       layout, stream);
+  }
+  return launch<T, true, kDepthShort>(descs, one, indices, s_b, s_t, s_l, out,
+                                      batch, n_tables, lookups, dim, layout,
+                                      stream);
 }
 
 template <typename T>
@@ -406,21 +502,25 @@ int launch_layout(const int* ragged, int vec, const TableDesc* descs,
   T* o = static_cast<T*>(out);
   if (ragged == nullptr) {
     return launch_vec<T>(vec, descs, one, indices, s_b, s_t, s_l, o, batch,
-                         n_tables, lookups, dim, Uniform{}, stream);
+                         n_tables, lookups,
+                         static_cast<long long>(lookups) * n_tables, dim,
+                         Uniform{}, stream);
   }
   if (n_tables > kMaxRagged || descs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Ragged layout{};
+  long long sum = 0;
   for (int t = 0; t < n_tables; ++t) {
     layout.lookups[t] = ragged[t];
     layout.col[t] = ragged[n_tables + t];
     if (ragged[t] < 1 || ragged[t] > lookups) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    sum += ragged[t];
   }
   return launch_vec<T>(vec, descs, one, indices, s_b, s_t, s_l, o, batch,
-                       n_tables, lookups, dim, layout, stream);
+                       n_tables, lookups, sum, dim, layout, stream);
 }
 
 }  // namespace

@@ -14,8 +14,9 @@ serves two entries:
   kernel's own contract.
 
 The source's note says what bounds the kernel and how it serves the hot
-tier (blocks of one table each, hot row copies cached in each SM's L1,
-the rest of the prefix in L2; not staged in shared memory). On a CPU
+tier (blocks of one table each, hot row loads cached in each SM's L1,
+the rest of the prefix in L2; rows loaded straight into registers, not
+staged in shared memory). On a CPU
 tensor a wrapper runs the plain version (``kernels.ref``), and on a meta
 tensor its shapes only (the dry-run, ``launch.dryrun``). On a CUDA tensor
 it launches the kernel on the current stream or raises.
@@ -63,6 +64,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p] * 2)
 # the most tables a ragged launch takes (the kernel's kMaxRagged)
 MAX_RAGGED_TABLES = 128
+# the row loads a thread keeps in flight on the 16-byte path (kDepthShort,
+# kDepthLong): the longer where a launch's bags average at least twice it
+PIPELINE_DEPTHS = (8, 12)
 
 
 _STALE = ("the descriptors no longer match the tables they name (a table, "

@@ -14,8 +14,11 @@ from repro_torch.configs import DLRMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_fused)
-from repro_torch.kernels.recflash_sls import (describe, recflash_sls,
+from repro_torch.kernels.recflash_sls import (PIPELINE_DEPTHS, describe,
+                                              recflash_sls,
                                               recflash_sls_grouped)
+from repro_torch.kernels.ref import (recflash_sls_grouped_ref,
+                                     recflash_sls_ref)
 from repro_torch.models import dlrm
 
 pytestmark = pytest.mark.cuda
@@ -254,6 +257,105 @@ class TestRecFlashSLSGroupedOnCard:
         params["tables"][1] = params["tables"][1].clone()
         with pytest.raises(ValueError):
             dlrm.bags(params, idx)
+
+
+# bag lengths around each depth of the 16-byte path's register pipeline (a
+# bag shorter than it, one that fills it, one that wraps once and twice),
+# either side of where a launch takes the longer one, and rmc2's
+PIPE_LENGTHS = tuple(sorted(
+    {n for d in PIPELINE_DEPTHS for n in (1, d - 1, d, d + 1, 2 * d + 1)}
+    | {2 * PIPELINE_DEPTHS[1] - 1, 2 * PIPELINE_DEPTHS[1], 120}))
+# ragged launches whose bags average under and over twice the longer depth
+RAGGED_SETS = {"short": PIPE_LENGTHS, "long": (25, 120, 24, 1)}
+
+
+def _interleaved(gen, v, h, b, lk):
+    """(b, lk) ranks of a table of v rows split at h, hot and cold in turn
+    within every bag (odd bags start cold)."""
+    hot = torch.randint(0, h, (b, lk), generator=gen, device="cuda")
+    cold = torch.randint(h, v, (b, lk), generator=gen, device="cuda")
+    turn = (torch.arange(lk, device="cuda")
+            + torch.arange(b, device="cuda")[:, None]) % 2
+    return torch.where(turn == 1, cold, hot)
+
+
+class TestRegisterPipelineOnCard:
+    """The 16-byte path at bag lengths around its pipeline's depth, hot and
+    cold ranks interleaved in each bag, bit-equal to ``kernels/ref.py`` on
+    every entry."""
+    V, H, D, B = 3000, 100, 64, 37
+
+    def _tables(self, gen, n, dtype):
+        tables = [torch.randn(self.V, self.D, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(n)]
+        perms = [torch.randperm(self.V, generator=gen, device="cuda")
+                 for _ in range(n)]
+        return tables, perms, [p.argsort().to(torch.int32) for p in perms]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("lk", PIPE_LENGTHS)
+    def test_uniform(self, gen, dtype, lk):
+        tables, perms, rank_of = self._tables(gen, 3, dtype)
+        hot = (self.H,) * 3
+        idx = torch.stack([p[_interleaved(gen, self.V, self.H, self.B, lk)]
+                           for p in perms], dim=1).to(torch.int32)
+        assert torch.equal(
+            recflash_sls_grouped(tables, hot, idx, rank_of),
+            recflash_sls_grouped_ref(tables, hot, idx, rank_of))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("lk", PIPE_LENGTHS)
+    def test_per_table(self, gen, dtype, lk):
+        (table,), _, _ = self._tables(gen, 1, dtype)
+        ranks = _interleaved(gen, self.V, self.H, self.B, lk).to(torch.int32)
+        hot, cold = table[:self.H], table[self.H:]
+        assert torch.equal(recflash_sls(hot, cold, ranks, block_b=1),
+                           recflash_sls_ref(hot, cold, ranks))
+
+    def _ragged_ids(self, gen, perms, lookups):
+        """(B, sum(lookups)) ids, table t's bags lookups[t] long."""
+        return torch.cat([p[_interleaved(gen, self.V, self.H, self.B, lk)]
+                          for p, lk in zip(perms, lookups, strict=True)],
+                         dim=1).to(torch.int32)
+
+    def _ragged(self, gen, dtype, lookups):
+        n = len(lookups)
+        tables, perms, rank_of = self._tables(gen, n, dtype)
+        return (tables, (self.H,) * n, self._ragged_ids(gen, perms, lookups),
+                rank_of, perms)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bags", RAGGED_SETS)
+    def test_ragged(self, gen, dtype, bags):
+        lookups = RAGGED_SETS[bags]
+        tables, hot, idx, rank_of, _ = self._ragged(gen, dtype, lookups)
+        assert torch.equal(
+            recflash_sls_grouped(tables, hot, idx, rank_of, lookups=lookups),
+            recflash_sls_grouped_ref(tables, hot, idx, rank_of, lookups))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bags", RAGGED_SETS)
+    def test_ragged_graph_replay(self, gen, dtype, bags):
+        lookups = RAGGED_SETS[bags]
+        tables, hot, idx, rank_of, perms = self._ragged(gen, dtype, lookups)
+        desc = describe(tables, hot, rank_of)
+        static = idx.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):      # warm: build, attributes set
+            recflash_sls_grouped(tables, hot, static, rank_of, desc, lookups)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = recflash_sls_grouped(tables, hot, static, rank_of, desc,
+                                       lookups)
+        for _ in range(3):
+            new = self._ragged_ids(gen, perms, lookups)
+            static.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, recflash_sls_grouped_ref(
+                tables, hot, new, rank_of, lookups))
 
 
 class TestDotInteractionOnCard:

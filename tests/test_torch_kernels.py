@@ -7,6 +7,9 @@ bag against the reference's. Inputs are made with numpy from a seed and
 handed to both packages; JAX stays on the CPU.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from repro_torch.embedding import bag, layout
 from repro_torch.kernels import ops
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_fused)
+from repro_torch.kernels import recflash_sls as sls_mod
 from repro_torch.kernels.recflash_sls import (describe, recflash_sls,
                                               recflash_sls_grouped)
 
@@ -188,6 +192,16 @@ class TestRecFlashSLSGrouped:
             recflash_sls_grouped(tt, (3,), ti, tr)
         recflash_sls_grouped(tt, (3, 50), ti, tr)  # CPU: the plain version
         assert recflash_sls_grouped.launches == before
+
+    @pytest.mark.parametrize("name,value", [
+        ("kDepthShort", sls_mod.PIPELINE_DEPTHS[0]),
+        ("kDepthLong", sls_mod.PIPELINE_DEPTHS[1]),
+        ("kMaxRagged", sls_mod.MAX_RAGGED_TABLES)])
+    def test_constants_are_the_kernels(self, name, value):
+        src = (Path(sls_mod.__file__).with_name("csrc")
+               / "recflash_sls.cu").read_text()
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value
 
     def test_public_op_is_the_per_table_ops(self):
         _, (tt, tr, ti) = _group_inputs((64, 100), (3, 50), 16, 8, 6)
